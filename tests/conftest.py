@@ -9,3 +9,8 @@ def pytest_configure(config):
         "markers",
         "slow: slowest scenario-equivalence tests (kept in CI; deselect "
         "locally with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's hand-written "
+        "kernels); skips with a reason where torch.cuda.is_available() "
+        "is False")
