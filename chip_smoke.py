@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` into
-``build/repro_torch/``, then runs these phases, one JSON line each, and
-exits non-zero if any fails:
+Builds every CUDA kernel of the port (K1, K2, K3) from
+``src/repro_torch/csrc`` into ``build/repro_torch/``, then runs these
+phases, one JSON line each, and exits non-zero if any fails:
 
 0. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions, the kernel build time;
@@ -23,12 +23,28 @@ exits non-zero if any fails:
    sources-tried histogram, bound hits, pruned sources), one host sync
    per chunk, K1 launched at least once per move; the first 200 moves
    held to the port's host faithful planner; a profiled first chunk;
+   then the same for ``cluster_b(scale=2)`` against
+   ``planner.tail.B2x.batch`` (1,385 moves);
 4. no hidden host sync: one chunk of cluster A under
    ``torch.cuda.set_sync_debug_mode("error")``;
-5. the kernel table line; the last line names the device.
+5. kernel K2 (``flash_attention``) against its plain version over the
+   reference sweep (T and Dh grid, f32 and bf16, GQA, window / softcap /
+   causal variants), Dh 112 and 256, windows that skip whole key tiles,
+   and the zamba2-7b shape; kernel, plain, SDPA and bound times there;
+6. kernel K3 (``ssd_scan``) against its plain version over the reference
+   sweep (G < H included), strided xBC views and the zamba2-7b shape;
+   kernel, plain and bound times there;
+7. zamba2-7b at full width, 6 layers, float32: prefill on the card
+   (through K2 and K3, launched 1 and 6 times) against the same
+   parameters on the CPU (plain versions), rtol = atol = 1e-3;
+8. zamba2-7b at full width and depth, bf16, B 1, T 4096 (the registry's
+   ``prefill_32k`` cut from B 32, S 32768): finite logits, K2 launched
+   14 times and K3 81 times, seconds, tokens/s, peak memory and the
+   profiled device-time shares of K2, K3 and the rest;
+9. the kernel table line; the last line names the device.
 
-``--plan-only`` runs phases 0 and 3 alone and prints no result line: the
-way to time two trees in turns within one session on one card.
+``--plan-only`` runs phases 0 and 3 (scale 1) alone and prints no result
+line: the way to time two trees in turns within one run on one card.
 
 It imports only ``repro_torch``, torch, NumPy and the standard library.
 """
@@ -52,8 +68,9 @@ SRC = ROOT / "src"
 #: (NVIDIA data sheet, 700 W), for the bytes and operations bounds
 HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
-#: the committed reference record of cluster B's full convergence
-BENCH_ROW = "planner.tail.B1x.batch"
+#: the committed reference records of cluster B's full convergence, by
+#: scale
+BENCH_ROWS = {1: "planner.tail.B1x.batch", 2: "planner.tail.B2x.batch"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -250,9 +267,9 @@ def phase_small() -> dict:
 # phase 3
 
 
-def bench_row() -> dict:
+def bench_row(name: str) -> dict:
     rows = json.loads((ROOT / "BENCH_planner.json").read_text())
-    row = next(r for r in rows if r["name"] == BENCH_ROW)
+    row = next(r for r in rows if r["name"] == name)
     fields = dict(kv.split("=", 1) for kv in row["derived"].split(";"))
     hist = {int(k): int(v) for k, v in
             (kv.split(":") for kv in fields["tried_hist"].split(","))}
@@ -296,17 +313,17 @@ def profile_chunk(state, card: str) -> dict:
                     for us, k, n in rows[:12]]}
 
 
-def phase_full(card: str) -> dict:
+def phase_full(card: str, scale: int = 1) -> dict:
     from repro_torch import obs
     from repro_torch.core.clustergen import cluster_b
     from repro_torch.core.planner import create_planner
     from repro_torch.kernels import select_move
-    want = bench_row()
+    want = bench_row(BENCH_ROWS[scale])
     t0 = time.perf_counter()
-    base = cluster_b(scale=1)
+    base = cluster_b(scale=scale)
     build_s = time.perf_counter() - t0
-    check((base.n_devices, len(base.acting)) == (995, 8731),
-          "cluster B shape")
+    check((base.n_devices, len(base.acting)) == (995 * scale, 8731 * scale),
+          f"cluster B x{scale} shape")
 
     planner = create_planner("equilibrium_batch", device="cuda")
     state = base.copy()
@@ -329,8 +346,8 @@ def phase_full(card: str) -> dict:
     st = res.stats
     n = len(res.moves)
     hist = {int(k): v for k, v in st["sources_tried_hist"].items()}
-    check(n == want["converged"], f"cluster B converged in {n} moves, "
-          f"expected {want['converged']}")
+    check(n == want["converged"], f"cluster B x{scale} converged in {n} "
+          f"moves, expected {want['converged']}")
     check(hist == want["tried_hist"], "cluster B sources_tried histogram")
     check(st["bound_hits"] == want["bound_hits"],
           f"bound_hits {st['bound_hits']} != {want['bound_hits']}")
@@ -355,7 +372,8 @@ def phase_full(card: str) -> dict:
           == [r.sources_tried for r in res.records[:200]],
           "cluster B: first 200 moves differ from the faithful planner")
 
-    out = {"card": card, "cluster_build_s": build_s, "moves": n,
+    out = {"card": card, "scale": scale, "cluster_build_s": build_s,
+           "moves": n,
            "plan_s": plan_s, "moves_per_s": n / plan_s,
            "chunks_s": chunk_s, "setup_s": plan_s - chunk_s,
            "host_syncs": st["host_syncs"], "chunks": chunks,
@@ -365,6 +383,9 @@ def phase_full(card: str) -> dict:
            "peak_mem_bytes": peak, "faithful_200_s": faithful_s,
            "variance_before": base.utilization_variance(),
            "variance_after": state.utilization_variance()}
+    if scale != 1:
+        emit(f"cluster_b{scale}", **out)
+        return out
     emit("cluster_b", **out)
     prof = profile_chunk(base.copy(), card)
     emit("cluster_b_profile", **prof)
@@ -394,6 +415,344 @@ def phase_no_sync() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 5-8: the LM prefill trunk (kernels K2 and K3, zamba2-7b)
+
+#: H100 SXM dense rates (NVIDIA data sheet, 700 W) by input type: the
+#: bf16 tensor-core rate, and float32 outside the tensor cores
+OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: VECTOR_OPS_PER_S}
+#: K2 and K3 against their plain versions: |kernel - plain| must be at
+#: most tol + tol * |plain| (rtol = atol = tol), by dtype
+KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: zamba2-7b prefill at full width and depth: the registry's prefill_32k
+#: (B 32, S 32768) cut for the run's time limit and the simple kernels
+PREFILL_B, PREFILL_T = 1, 4096
+#: K2 and K3 kernel names as the profiler lists them
+K2_KERNEL, K3_KERNEL = "flash_fwd_kernel", "ssd_scan_kernel"
+
+
+def compare(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, the largest share of the tolerance of want's
+    dtype that any element uses: the check passes at ≤ 1)."""
+    tol = KERNEL_TOL[want.dtype]
+    err = (got.float() - want.float()).abs()
+    return float(err.max()), float((err / (tol + tol * want.float().abs()))
+                                   .max())
+
+
+def bound(nbytes: float, ops: float, dtype: torch.dtype) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / OPS_PER_S[dtype] * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_k2(card: str) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_plain
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def qkv(B, T, H, KV, Dh, dtype):
+        return tuple(torch.randn((B, T, h, Dh), generator=gen,
+                                 device=dev).to(dtype) for h in (H, KV, KV))
+
+    # (name, (B, T, H, KV, Dh, dtype), options): the sweep of
+    # tests/test_kernels.py:20-84 (T and Dh grid, f32 and bf16, GQA
+    # through ops, the mask variants, the model's attention shape), then
+    # Dh 112 and 256, windows that skip whole key tiles, and the zamba2-7b
+    # prefill shape in float32 (where the limit is far below the output's
+    # scale) and in bfloat16
+    cases = [(f"T{T} Dh{Dh} {str(dt)[6:]}", (2, T, 4, 2, Dh, dt), {})
+             for T, Dh, dt in ((128, 64, f32), (256, 64, f32),
+                               (128, 128, f32), (96, 64, f32),
+                               (128, 64, bf16), (128, 112, f32),
+                               (256, 112, bf16), (128, 256, f32),
+                               (200, 256, bf16))]
+    cases += [(f"mask w{w} cap{c} causal{z}", (1, 128, 2, 2, 64, f32),
+               dict(window=w, cap=c, causal=z))
+              for w, c, z in ((None, None, True), (32, None, True),
+                              (None, 50.0, True), (48, 30.0, True),
+                              (None, None, False))]
+    cases += [("model H8 KV4 w64", (2, 128, 8, 4, 64, f32), dict(window=64)),
+              ("skip tiles w100", (1, 1024, 4, 4, 112, f32),
+               dict(window=100)),
+              ("skip tiles w100 non-causal", (1, 1024, 4, 4, 64, bf16),
+               dict(window=100, causal=False)),
+              *((f"zamba2 B{PREFILL_B} T{PREFILL_T} H32 Dh112 "
+                 f"{str(dt)[6:]}", (PREFILL_B, PREFILL_T, 32, 32, 112, dt),
+                 {}) for dt in (f32, bf16))]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    zamba2_err = {}                           # max abs err at its shape
+    tol_use = 0.0
+    for name, shape, kw in cases:
+        q, k, v = qkv(*shape)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, use = compare(got, want)
+        key = str(shape[-1])[6:]
+        worst[key] = max(worst[key], err)
+        if name.startswith("zamba2"):
+            zamba2_err[key] = err
+        tol_use = max(tol_use, use)
+        check(use <= 1, f"K2 differs from its plain version on {name} "
+                        f"(max abs err {err})")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+    B, T, H, Dh = PREFILL_B, PREFILL_T, 32, 112
+    q, k, v = qkv(B, T, H, H, Dh, bf16)
+    ms = time_cuda(lambda: k2.flash_attention_fwd(q, k, v), 20, 2)
+    plain_ms = time_cuda(lambda: flash_attention_plain(q, k, v), 5, 1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20, 2)
+    lib_err = float((F.scaled_dot_product_attention(qt, kt, vt,
+                                                    is_causal=True)
+                     .transpose(1, 2).float()
+                     - k2.flash_attention_fwd(q, k, v).float()).abs().max())
+    pairs = T * (T + 1) // 2                  # legal (query, key) pairs
+    out = {"card": card, "cases": len(cases),
+           "max_abs_err": max(worst.values()),
+           "max_abs_err_by_dtype": worst, "tolerance": "rtol = atol = "
+           "1e-4 (float32), 2e-2 (bfloat16)", "tolerance_used": tol_use,
+           "zamba2_shape_max_abs_err": zamba2_err,
+           "shape": {"B": B, "T": T, "H": H, "Dh": Dh, "dtype": "bfloat16",
+                     "causal": True},
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library": "torch.nn.functional.scaled_dot_product_attention",
+           "library_vs_kernel_max_abs": lib_err,
+           **bound(4 * B * T * H * Dh * 2, 4 * Dh * pairs * B * H, bf16)}
+    emit("k2", **out)
+    return out
+
+
+def ssd_inputs(gen, B, T, H, G, P, N, dtype):
+    dev = gen.device
+    x = torch.randn((B, T, H, P), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=gen, device=dev) - 1)
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.3)
+    Bm = (torch.randn((B, T, G, N), generator=gen, device=dev) * 0.5
+          ).to(dtype)
+    Cm = (torch.randn((B, T, G, N), generator=gen, device=dev) * 0.5
+          ).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def phase_k3(card: str) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.kernels.ref import ssd_scan_plain
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (B, T, H, G, P, N, chunk, dtype): the sweep of tests/test_kernels.py
+    # :133-177 (G < H included), zamba2-7b's widths, and its prefill shape
+    # in float32 and bfloat16
+    cases = [(2, 64, 4, 2, 16, 16, 16, f32), (2, 128, 4, 2, 32, 16, 32, f32),
+             (2, 64, 4, 2, 16, 16, 64, f32), (2, 64, 4, 2, 16, 16, 16, bf16),
+             (2, 64, 4, 1, 16, 16, 16, f32),
+             (1, 1024, 112, 1, 64, 64, 128, f32),
+             (1, PREFILL_T, 112, 1, 64, 64, 128, f32),
+             (1, PREFILL_T, 112, 1, 64, 64, 128, bf16)]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    zamba2_err = {}                           # max abs err at its shape
+    tol_use = 0.0
+    for B, T, H, G, P, N, chunk, dtype in cases:
+        ins = ssd_inputs(gen, B, T, H, G, P, N, dtype)
+        err, use = compare(ops.ssd_scan(*ins, chunk=chunk),
+                           ssd_scan_plain(*ins))
+        key = str(dtype)[6:]
+        worst[key] = max(worst[key], err)
+        if T == PREFILL_T:
+            zamba2_err[key] = err
+        tol_use = max(tol_use, use)
+        check(use <= 1, f"K3 differs from its plain version at B{B} T{T} H{H} "
+                  f"G{G} P{P} N{N} Q{chunk} {key} (max abs err {err})")
+    # x, B and C as the SSD layer passes them: views into one xBC tensor
+    B, T, H, P, N = 1, 512, 8, 64, 64
+    xbc = torch.randn((B, T, H * P + 2 * N), generator=gen, device="cuda")
+    x, Bm, Cm = torch.split(xbc, [H * P, N, N], dim=-1)
+    _, dt, A, _, _ = ssd_inputs(gen, B, T, H, 1, P, N, f32)
+    ins = (x.reshape(B, T, H, P), dt, A, Bm.reshape(B, T, 1, N),
+           Cm.reshape(B, T, 1, N))
+    err, use = compare(ops.ssd_scan(*ins), ssd_scan_plain(*ins))
+    check(use <= 1, f"K3 on strided xBC views (max abs err {err})")
+    worst["float32"] = max(worst["float32"], err)
+    tol_use = max(tol_use, use)
+
+    B, T, H, G, P, N, Q = PREFILL_B, PREFILL_T, 112, 1, 64, 64, 128
+    ins = ssd_inputs(gen, B, T, H, G, P, N, bf16)
+    ms = time_cuda(lambda: k3.ssd_scan_fwd(*ins, chunk=Q), 20, 2)
+    plain_ms = time_cuda(lambda: ssd_scan_plain(*ins), 2, 0)
+    tri = Q * (Q + 1) // 2                    # lower-triangle (t, u) pairs
+    macs = B * H * (T // Q) * (tri * N + tri * P + 2 * Q * N * P)
+    nbytes = 2 * B * T * H * P * 2 + B * T * H * 4 + H * 4 \
+        + 2 * B * T * G * N * 2
+    out = {"card": card, "cases": len(cases) + 1,
+           "max_abs_err": max(worst.values()),
+           "max_abs_err_by_dtype": worst, "tolerance": "rtol = atol = "
+           "1e-4 (float32), 2e-2 (bfloat16)", "tolerance_used": tol_use,
+           "zamba2_shape_max_abs_err": zamba2_err,
+           "shape": {"B": B, "T": T, "H": H, "G": G, "P": P, "N": N,
+                     "chunk": Q, "dtype": "bfloat16 (dt, A float32)"},
+           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "library": "none: no single PyTorch call computes the scan",
+           **bound(nbytes, 2 * macs, bf16)}
+    emit("k3", **out)
+    return out
+
+
+def phase_lm_parity(card: str) -> dict:
+    """zamba2-7b at full width, depth cut to 6 layers (one shared-block
+    application), float32: prefill on the card through K2 and K3 against
+    the same parameters' prefill on the CPU through the plain versions."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.models import LM, build_model, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False    # full float32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=6,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    on_card = build_model(cfg, seed=0)
+    on_cpu = LM(cfg, torch.device("cpu"))
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    setup_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 256)))
+    k2.reset_launch_count()                   # the main path's run only
+    k3.reset_launch_count()
+    t0 = time.perf_counter()
+    got = prefill(on_card, {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = (k2.launch_count(), k3.launch_count())
+    t0 = time.perf_counter()
+    want = prefill(on_cpu, {"tokens": tokens})
+    cpu_s = time.perf_counter() - t0
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(got).all()), "6-layer logits not finite")
+    check(launches == (1, 6), f"6-layer prefill launched K2, K3 "
+                              f"{launches} times, expected (1, 6)")
+    check(torch.allclose(got, want, rtol=1e-3, atol=1e-3),
+          f"6-layer prefill: card differs from CPU (max abs err {err})")
+    out = {"card": card, "config": "zamba2-7b, n_layers 6, float32",
+           "B": 1, "T": 256, "k2_launches": launches[0],
+           "k3_launches": launches[1], "max_abs_err": err,
+           "logit_scale": float(want.abs().max()),
+           "tolerance": "rtol = atol = 1e-3", "setup_s": setup_s,
+           "card_s_first_call": card_s, "cpu_s": cpu_s}
+    emit("lm_parity", **out)
+    return out
+
+
+def phase_prefill(card: str) -> dict:
+    """zamba2-7b at full width and depth, bf16 compute over float32
+    parameters: one warm-up, three timed prefills (the first counted),
+    and a profiled one."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.models import build_model, param_count, prefill
+    cfg = get_config("zamba2-7b")
+    spec = SHAPES["prefill_32k"]
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_T), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(2))}
+    prefill(model, batch)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for run in range(3):
+        if run == 0:
+            k2.reset_launch_count()           # the main path's run only
+            k3.reset_launch_count()
+        t0 = time.perf_counter()
+        logits = prefill(model, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if run == 0:
+            launches = (k2.launch_count(), k3.launch_count())
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "zamba2-7b prefill logits not finite or of the wrong shape")
+    check(launches == (14, 81), f"zamba2-7b prefill launched K2, K3 "
+                                f"{launches} times, expected (14, 81)")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(model, batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    by_name: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if str(ev.device_type) != "DeviceType.CUDA":
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    busy = sum(by_name.values())
+    check(busy > 0, "the profiler saw no device time in the prefill")
+    k2_ms = sum(v for k, v in by_name.items() if K2_KERNEL in k)
+    k3_ms = sum(v for k, v in by_name.items() if K3_KERNEL in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    median = sorted(seconds)[1]
+    out = {"card": card, "config": "zamba2-7b, 81 layers, full width",
+           "params": n_params, "param_count_analytic": param_count(cfg),
+           "dtype": "bfloat16 compute, float32 parameters",
+           "B": PREFILL_B, "T": PREFILL_T,
+           "reduced": {"global_batch": f"{spec.global_batch} -> {PREFILL_B}",
+                       "seq_len": f"{spec.seq_len} -> {PREFILL_T}",
+                       "why": "the run's time limit and the simple kernels"},
+           "init_s": init_s, "seconds": seconds, "median_s": median,
+           "tokens_per_s": PREFILL_B * PREFILL_T / median,
+           "peak_mem_bytes": peak, "k2_launches": launches[0],
+           "k3_launches": launches[1],
+           "profile": {"wall_ms": prof_wall * 1e3, "device_ms": busy,
+                       "idle_share": 1.0 - busy / (prof_wall * 1e3),
+                       "k2_ms": k2_ms, "k3_ms": k3_ms,
+                       "rest_ms": busy - k2_ms - k3_ms,
+                       "k2_share": k2_ms / busy, "k3_share": k3_ms / busy,
+                       "rest_share": (busy - k2_ms - k3_ms) / busy,
+                       "top": [{"name": k[:80], "device_ms": v}
+                               for k, v in top]}}
+    del model
+    torch.cuda.empty_cache()
+    emit("zamba2_prefill", **out)
+    return out
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int,
+                 phase: dict) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "matches_plain": True, "max_abs_err": phase["max_abs_err"],
+            "ms": phase["ms"], "plain_ms": phase["plain_ms"],
+            "bound_ms": phase["bound_ms"], "bound_by": phase["bound_by"],
+            "library_ms": phase["library_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--plan-only", action="store_true",
@@ -412,22 +771,29 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     env = phase_env()
+    card = env["card"]
     if args.plan_only:
-        phase_full(env["card"])
+        phase_full(card)
         return 0
     k1 = phase_k1()
     phase_small()
-    full = phase_full(env["card"])
+    full = phase_full(card)
+    phase_full(card, scale=2)
     phase_no_sync()
-    print(json.dumps({"kernels": [{
-        "name": "masked_select", "route": "cuda",
-        "source": "src/repro_torch/csrc/masked_select.cu",
-        "replaces": "src/repro/kernels/select_move.py:44",
-        "launches": full["k1_launches"], "matches_plain": True,
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]}]}),
-        flush=True)
+    k2 = phase_k2(card)
+    k3 = phase_k3(card)
+    phase_lm_parity(card)
+    pre = phase_prefill(card)
+    print(json.dumps({"kernels": [
+        kernel_entry("masked_select", "masked_select.cu",
+                     "src/repro/kernels/select_move.py:44",
+                     full["k1_launches"], k1),
+        kernel_entry("flash_attention", "flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:87",
+                     pre["k2_launches"], k2),
+        kernel_entry("ssd_scan", "ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:66",
+                     pre["k3_launches"], k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

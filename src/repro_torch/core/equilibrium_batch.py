@@ -72,6 +72,7 @@ from .equilibrium import EquilibriumConfig, MoveRecord
 from .tail import tail_flush, tail_record, tail_stats, tail_terminal
 from .. import obs as _obs
 from ..kernels.ops import masked_select
+from ..device import resolve_device
 from ..kernels.select_move import compact_parked
 from ..obs import registry as _obs_registry
 
@@ -95,18 +96,6 @@ def _fetch(t: torch.Tensor) -> np.ndarray:
     planning chunk (plus one per re-pad), never per move or source."""
     _obs_registry().inc("batch.host_syncs")
     return t.cpu().numpy()
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the card: CUDA, or raise when there is none.  The
-    CPU runs only when the caller names it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("equilibrium_batch runs on a CUDA device and "
-                               "none is available; pass device='cpu' to "
-                               "plan on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -414,7 +403,7 @@ class BatchPlanner:
         self.chunk = chunk
         self.row_capacity = row_capacity
         self.source_bounds = source_bounds
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "equilibrium_batch")
         self._dense = None
         self._step: _Chunk | None = None
         self._epoch = -1                # state.mutation_epoch at last sync

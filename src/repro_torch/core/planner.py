@@ -34,6 +34,7 @@ from .cluster import (ClusterDelta, ClusterState, DeviceAddDelta,
 from .equilibrium import EquilibriumConfig, MoveRecord, _balance
 from .mgr_balancer import MgrBalancerConfig, _balance as _mgr_balance
 from .. import obs as _obs
+from ..device import resolve_device
 from ..obs import finalize_stats
 
 __all__ = [
@@ -263,13 +264,12 @@ class BatchEquilibriumPlanner:
                  row_capacity: int | None = None, warm: bool = True,
                  legality_cache: bool = False, source_bounds: bool = True,
                  device=None):
-        from .equilibrium_batch import resolve_device
         if legality_cache:
             raise ValueError("legality_cache is not implemented by the "
                              "PyTorch batch engine yet")
         self.cfg = cfg or EquilibriumConfig()
         self.warm = warm
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "equilibrium_batch")
         self._engine_kwargs = dict(chunk=chunk, row_capacity=row_capacity,
                                    source_bounds=source_bounds,
                                    device=self.device)

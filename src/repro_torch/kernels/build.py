@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: every CUDA source of the port (``csrc/<name>.cu``)
-SOURCES = ("masked_select",)
+SOURCES = ("masked_select", "flash_attention", "ssd_scan")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch``
 loads neither JAX nor the reference package ``repro``; no module of the
-port, nor ``chip_smoke.py``, imports either; and the batch engine's
-default device is the card — it raises without one rather than carrying
-on on the CPU."""
+port, nor ``chip_smoke.py``, imports either; and the default device of
+the batch engine and of the LM is the card — each raises without one
+rather than carrying on on the CPU."""
 
 import ast
 import os
@@ -28,6 +28,7 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
 
 
@@ -40,6 +41,11 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     lines = proc.stdout.splitlines() + [""]
     assert int(lines[0]) >= 15
     assert lines[1] == "", f"port imports pulled in: {lines[1]}"
+    walked = set(lines[2].split(","))
+    assert {"repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.ssd_scan", "repro_torch.models.lm",
+            "repro_torch.models.convert",
+            "repro_torch.configs.zamba2_7b"} <= walked
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -74,6 +80,21 @@ def test_batch_default_device_is_cuda():
         create_planner("equilibrium_batch")
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchPlanner(small_test_cluster())
+
+
+def test_lm_default_device_is_cuda():
+    """``device=None`` means the card for the LM's entry points; without
+    one they raise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, params_from_numpy
+    cfg = get_config("zamba2-7b").reduced()
+    if torch.cuda.is_available():
+        assert build_model(cfg).embed.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy(cfg, {})
 
 
 @pytest.mark.cuda
