@@ -8,7 +8,10 @@ Builds every CUDA kernel of the port (K1, K2, K3) from
 phases, one JSON line each, and exits non-zero if any fails:
 
 0. environment: the card's name and power limit (``nvidia-smi``), the
-   torch and CUDA versions, the kernel build time;
+   torch and CUDA versions, the kernel build time; ``cuobjdump -sass`` of
+   K2's library must show ``HGMMA`` (the tensor-core kernel is on the
+   tensor cores), and the registers and spills of each tensor-core
+   instantiation from the ``-Xptxas -v`` report;
 1. kernel K1 (``masked_select``) against its plain PyTorch version on the
    card, bitwise, over shapes, dtypes, densities, a tie-break row and
    all-invalid rows; kernel, plain, library-call and bound times at the
@@ -30,17 +33,24 @@ phases, one JSON line each, and exits non-zero if any fails:
 5. kernel K2 (``flash_attention``) against its plain version over the
    reference sweep (T and Dh grid, f32 and bf16, GQA, window / softcap /
    causal variants), Dh 112 and 256, windows that skip whole key tiles,
-   and the zamba2-7b shape; kernel, plain, SDPA and bound times there;
+   and the zamba2-7b shape; then bf16 cases of the tensor-core variant
+   (Dh 16 to 128, GQA, window and softcap, non-causal, ragged T, skipped
+   tiles) against the float32 plain version of the same bf16 inputs; at
+   the zamba2-7b shape K2's max abs error and worst row error against
+   that float32 version within twice SDPA's; misaligned bf16 views
+   raise; launches by variant; kernel, plain, SDPA and bound times;
 6. kernel K3 (``ssd_scan``) against its plain version over the reference
    sweep (G < H included), strided xBC views and the zamba2-7b shape;
    kernel, plain and bound times there;
 7. zamba2-7b at full width, 6 layers, float32: prefill on the card
    (through K2 and K3, launched 1 and 6 times) against the same
-   parameters on the CPU (plain versions), rtol = atol = 1e-3;
+   parameters on the CPU (plain versions), rtol = atol = 1e-3; K2 on its
+   SIMT variant;
 8. zamba2-7b at full width and depth, bf16, B 1, T 4096 (the registry's
    ``prefill_32k`` cut from B 32, S 32768): finite logits, K2 launched
-   14 times and K3 81 times, seconds, tokens/s, peak memory and the
-   profiled device-time shares of K2, K3 and the rest;
+   14 times, all on its tensor-core variant, and K3 81 times, seconds,
+   tokens/s, peak memory and the profiled device-time shares of K2, K3
+   and the rest;
 9. the kernel table line; the last line names the device.
 
 ``--plan-only`` runs phases 0 and 3 (scale 1) alone and prints no result
@@ -53,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -123,9 +134,56 @@ def phase_env() -> dict:
     env = {"card": card, "device": torch.cuda.get_device_name(0),
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "python": sys.version.split()[0],
-           "kernels_built": sorted(reports), "build_s": build_s}
+           "kernels_built": sorted(reports), "build_s": build_s,
+           **k2_instructions(build)}
     emit("env", **env)
     return env
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Registers, stack and spill bytes of each entry function in an
+    ``-Xptxas -v`` report, by mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) "
+                                      r"bytes spill stores, (\d+) bytes "
+                                      r"spill loads", line)):
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def k2_instructions(build) -> dict:
+    """K2's library on the tensor cores: ``cuobjdump -sass`` must show
+    HGMMA (wgmma); the registers and spills of each tensor-core
+    instantiation (by Dh) and any wgmma serialisation ptxas reported."""
+    lib = build.library_path("flash_attention")
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump -sass {lib.name} failed: "
+                                f"{sass.stderr.strip()[-400:]}")
+    hgmma = len(re.findall(r"\bHGMMA\b", sass.stdout))
+    check(hgmma > 0, "K2's library has no HGMMA instruction: the "
+                     "tensor-core kernel does not run on the tensor cores")
+    log = build.ptxas_report("flash_attention")
+    tc = {f"Dh{16 * int(m.group(1))}": stats
+          for name, stats in ptxas_kernels(log).items()
+          if (m := re.search(r"flash_fwd_kernel_tcILi(\d+)E", name))}
+    check(len(tc) == 8, f"the ptxas report lists {len(tc)} tensor-core "
+                        f"instantiations of K2, expected 8")
+    return {"k2_sass_hgmma": hgmma,
+            "k2_tensor_core_ptxas": dict(sorted(
+                tc.items(), key=lambda kv: int(kv[0][2:]))),
+            "k2_wgmma_serialized": [line.strip() for line in
+                                    log.splitlines()
+                                    if "serializ" in line]}
 
 
 # ---------------------------------------------------------------------------
@@ -431,13 +489,32 @@ PREFILL_B, PREFILL_T = 1, 4096
 K2_KERNEL, K3_KERNEL = "flash_fwd_kernel", "ssd_scan_kernel"
 
 
-def compare(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """(max |got - want|, the largest share of the tolerance of want's
-    dtype that any element uses: the check passes at ≤ 1)."""
-    tol = KERNEL_TOL[want.dtype]
+#: the largest relative L2 error of one K2 output row (over Dh) that a
+#: bf16 call may have against the float32 plain version of its inputs:
+#: bf16 rounds the output and P to 2^-9, a fifth of it; a key tile
+#: dropped from a row of up to 4,096 keys costs at least
+#: sqrt(128 / 4096) = 0.18
+ROW_REL_TOL = 1e-2
+
+
+def compare(got: torch.Tensor, want: torch.Tensor,
+            dtype: torch.dtype | None = None) -> tuple[float, float]:
+    """(max |got - want|, the largest share of the tolerance of
+    ``dtype`` (default want's) that any element uses: the check passes
+    at ≤ 1)."""
+    tol = KERNEL_TOL[dtype or want.dtype]
     err = (got.float() - want.float()).abs()
     return float(err.max()), float((err / (tol + tol * want.float().abs()))
                                    .max())
+
+
+def attention_errors(got: torch.Tensor, want: torch.Tensor
+                     ) -> tuple[float, float]:
+    """(max abs error, worst relative L2 error of an output row over Dh)
+    of attention outputs against a float32 ``want``."""
+    d = got.float() - want
+    row = d.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-6)
+    return float(d.abs().max()), float(row.max())
 
 
 def bound(nbytes: float, ops: float, dtype: torch.dtype) -> dict:
@@ -488,6 +565,7 @@ def phase_k2(card: str) -> dict:
     worst = {"float32": 0.0, "bfloat16": 0.0}
     zamba2_err = {}                           # max abs err at its shape
     tol_use = 0.0
+    k2.reset_launch_count()
     for name, shape, kw in cases:
         q, k, v = qkv(*shape)
         got = ops.flash_attention(q, k, v, **kw)
@@ -503,29 +581,100 @@ def phase_k2(card: str) -> dict:
                         f"(max abs err {err})")
         del q, k, v, got, want
         torch.cuda.empty_cache()
+    sweep_launches = k2.launch_counts()
 
+    # the tensor-core variant: bf16 cases against the float32 plain
+    # version of the same bf16 inputs
+    tc_cases = [(f"tc Dh{Dh} T{T}", (2, T, 4, 4, Dh, bf16), {})
+                for T, Dh in ((256, 64), (256, 112), (256, 128))]
+    tc_cases += [(f"tc GQA Dh{Dh} ragged T200", (2, 200, 8, 2, Dh, bf16),
+                  {}) for Dh in range(16, 129, 16)]
+    tc_cases += [("tc GQA H8 KV2", (2, 256, 8, 2, 112, bf16), {}),
+                 ("tc w48 cap30", (1, 384, 4, 4, 112, bf16),
+                  dict(window=48, cap=30.0)),
+                 ("tc non-causal", (2, 256, 4, 4, 64, bf16),
+                  dict(causal=False)),
+                 ("tc skip tiles w100", (1, 1024, 4, 4, 112, bf16),
+                  dict(window=100)),
+                 ("tc skip tiles w100 non-causal", (1, 1024, 4, 2, 128, bf16),
+                  dict(window=100, causal=False))]
+    tc_abs = tc_row = tc_use = 0.0
+    k2.reset_launch_count()
+    for name, shape, kw in tc_cases:
+        q, k, v = qkv(*shape)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        abs_err, row_err = attention_errors(got, want)
+        _, use = compare(got, want, bf16)
+        tc_abs, tc_row = max(tc_abs, abs_err), max(tc_row, row_err)
+        tc_use = max(tc_use, use)
+        check(use <= 1 and row_err <= ROW_REL_TOL,
+              f"K2 tensor-core variant differs from the float32 plain "
+              f"version on {name} (max abs err {abs_err}, worst row "
+              f"error {row_err})")
+    tc_launches = k2.launch_counts()
+    check(tc_launches == {"tensor_core": len(tc_cases), "simt": 0},
+          f"the bf16 cases launched {tc_launches}, expected all "
+          f"{len(tc_cases)} on the tensor-core variant")
+
+    # a bf16 call that TMA cannot read raises and launches nothing
+    buf = torch.randn(2 * 64 * 4 * 64 + 1, device=dev).to(bf16)
+    wide = torch.randn((2, 64, 4, 68), device=dev).to(bf16)
+    misaligned = {"pointer one element off": buf[1:].view(2, 64, 4, 64),
+                  "136-byte head stride": wide[..., :64]}
+    k2.reset_launch_count()
+    raised = []
+    for name, bad in misaligned.items():
+        try:
+            k2.flash_attention_fwd(bad, bad, bad)
+        except ValueError:
+            raised.append(name)
+    check(raised == list(misaligned) and k2.launch_count() == 0,
+          f"misaligned bf16 views: raised on {raised} of "
+          f"{list(misaligned)}, {k2.launch_count()} launches")
+
+    # the zamba2-7b shape: accuracy gate, then times
     B, T, H, Dh = PREFILL_B, PREFILL_T, 32, 112
     q, k, v = qkv(B, T, H, H, Dh, bf16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    want = flash_attention_plain(q.float(), k.float(), v.float())
+    k2.reset_launch_count()
+    k2_abs, k2_row = attention_errors(k2.flash_attention_fwd(q, k, v), want)
+    check(k2.launch_counts()["tensor_core"] == 1,
+          "K2 at the zamba2 shape did not take the tensor-core variant")
+    lib_abs, lib_row = attention_errors(F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True).transpose(1, 2), want)
+    del want
+    torch.cuda.empty_cache()
+    gate = {"k2_max_abs_err": k2_abs, "sdpa_max_abs_err": lib_abs,
+            "k2_worst_row_rel_err": k2_row, "sdpa_worst_row_rel_err": lib_row,
+            "reference": "flash_attention_plain on float32 copies of the "
+                         "bf16 inputs", "limit": "K2 <= 2 x SDPA, each"}
+    check(k2_abs <= 2 * lib_abs and k2_row <= 2 * lib_row,
+          f"K2 at the zamba2 shape is less accurate than twice SDPA: {gate}")
+
     ms = time_cuda(lambda: k2.flash_attention_fwd(q, k, v), 20, 2)
     plain_ms = time_cuda(lambda: flash_attention_plain(q, k, v), 5, 1)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20, 2)
-    lib_err = float((F.scaled_dot_product_attention(qt, kt, vt,
-                                                    is_causal=True)
-                     .transpose(1, 2).float()
-                     - k2.flash_attention_fwd(q, k, v).float()).abs().max())
     pairs = T * (T + 1) // 2                  # legal (query, key) pairs
-    out = {"card": card, "cases": len(cases),
+    out = {"card": card, "cases": len(cases) + len(tc_cases),
            "max_abs_err": max(worst.values()),
            "max_abs_err_by_dtype": worst, "tolerance": "rtol = atol = "
            "1e-4 (float32), 2e-2 (bfloat16)", "tolerance_used": tol_use,
            "zamba2_shape_max_abs_err": zamba2_err,
+           "tensor_core_vs_float32": {
+               "cases": len(tc_cases), "max_abs_err": tc_abs,
+               "worst_row_rel_err": tc_row, "tolerance_used": tc_use,
+               "row_rel_tol": ROW_REL_TOL},
+           "zamba2_gate": gate, "misaligned_raised": raised,
+           "launches_by_variant": {"sweep": sweep_launches,
+                                   "tensor_core_cases": tc_launches},
+           "variant": "tensor_core",
            "shape": {"B": B, "T": T, "H": H, "Dh": Dh, "dtype": "bfloat16",
                      "causal": True},
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "library": "torch.nn.functional.scaled_dot_product_attention",
-           "library_vs_kernel_max_abs": lib_err,
            **bound(4 * B * T * H * Dh * 2, 4 * Dh * pairs * B * H, bf16)}
     emit("k2", **out)
     return out
@@ -635,6 +784,7 @@ def phase_lm_parity(card: str) -> dict:
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     launches = (k2.launch_count(), k3.launch_count())
+    k2_variants = k2.launch_counts()
     t0 = time.perf_counter()
     want = prefill(on_cpu, {"tokens": tokens})
     cpu_s = time.perf_counter() - t0
@@ -645,10 +795,14 @@ def phase_lm_parity(card: str) -> dict:
     check(bool(torch.isfinite(got).all()), "6-layer logits not finite")
     check(launches == (1, 6), f"6-layer prefill launched K2, K3 "
                               f"{launches} times, expected (1, 6)")
+    check(k2_variants["simt"] == 1, f"the float32 prefill's K2 call took "
+                                    f"{k2_variants}, expected the SIMT "
+                                    f"variant")
     check(torch.allclose(got, want, rtol=1e-3, atol=1e-3),
           f"6-layer prefill: card differs from CPU (max abs err {err})")
     out = {"card": card, "config": "zamba2-7b, n_layers 6, float32",
            "B": 1, "T": 256, "k2_launches": launches[0],
+           "k2_launches_by_variant": k2_variants,
            "k3_launches": launches[1], "max_abs_err": err,
            "logit_scale": float(want.abs().max()),
            "tolerance": "rtol = atol = 1e-3", "setup_s": setup_s,
@@ -690,12 +844,16 @@ def phase_prefill(card: str) -> dict:
         seconds.append(time.perf_counter() - t0)
         if run == 0:
             launches = (k2.launch_count(), k3.launch_count())
+            k2_variants = k2.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     check(tuple(logits.shape) == (PREFILL_B, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           "zamba2-7b prefill logits not finite or of the wrong shape")
     check(launches == (14, 81), f"zamba2-7b prefill launched K2, K3 "
                                 f"{launches} times, expected (14, 81)")
+    check(k2_variants == {"tensor_core": 14, "simt": 0},
+          f"zamba2-7b prefill's K2 launches by variant {k2_variants}, "
+          f"expected all 14 on the tensor-core variant")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -727,6 +885,7 @@ def phase_prefill(card: str) -> dict:
            "init_s": init_s, "seconds": seconds, "median_s": median,
            "tokens_per_s": PREFILL_B * PREFILL_T / median,
            "peak_mem_bytes": peak, "k2_launches": launches[0],
+           "k2_launches_by_variant": k2_variants,
            "k3_launches": launches[1],
            "profile": {"wall_ms": prof_wall * 1e3, "device_ms": busy,
                        "idle_share": 1.0 - busy / (prof_wall * 1e3),
@@ -744,9 +903,12 @@ def phase_prefill(card: str) -> dict:
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  phase: dict) -> dict:
+    """One kernel of the table line; ``variant`` names the one the main
+    path ran where the kernel has more than one."""
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
+            "variant": phase.get("variant"),
             "matches_plain": True, "max_abs_err": phase["max_abs_err"],
             "ms": phase["ms"], "plain_ms": phase["plain_ms"],
             "bound_ms": phase["bound_ms"], "bound_by": phase["bound_by"],

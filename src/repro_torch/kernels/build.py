@@ -5,9 +5,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 root — a directory ``.gitignore`` lists.  The library's file name carries
 a hash of the source and the flags, so an edited source rebuilds and
 concurrent builds never load a half-written file (each writes a
-private temporary and renames it into place).  Nothing is built when this
-module is imported; :func:`load` builds on the first call and
-:func:`build` starts one ``nvcc`` per source, all at once.
+private temporary and renames it into place).  The compiler's report
+(``-Xptxas -v``: registers, spills) is kept beside each library.  Nothing
+is built when this module is imported; :func:`load` builds on the first
+call and :func:`build` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -50,6 +51,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def report_path(name: str) -> Path:
+    """Where the ``-Xptxas -v`` report of :func:`library_path` is kept."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
 def build(names=SOURCES) -> dict[str, str]:
     """Compile every source in ``names`` that has no current library, one
     ``nvcc`` process each, all started together.  Returns the compiler's
@@ -74,11 +80,21 @@ def build(names=SOURCES) -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        log_tmp = tmp.with_suffix(".ptxas.tmp")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, report_path(name))
         os.replace(tmp, out)
         reports[name] = log
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` report of ``csrc/<name>.cu``'s current library,
+    built first if needed."""
+    build((name,))
+    return report_path(name).read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,10 +1,23 @@
 """K2 on Hopper: the flash-attention forward.
 
-:func:`flash_attention_fwd` launches the CUDA kernel
+:func:`flash_attention_fwd` launches a CUDA kernel of
 ``csrc/flash_attention.cu`` — it replaces the Pallas kernel
 ``src/repro/kernels/flash_attention.py::flash_attention_fwd`` — and
 :func:`repro_torch.kernels.ref.flash_attention_ref` is its plain version.
-The kernel's source notes its bound and design.
+The kernels' source notes their bound and design.
+
+Two variants, chosen by :func:`route` from the dtype and the head width
+alone:
+
+* ``"tensor_core"`` (``flash_attention_fwd_tc``: TMA, wgmma) for bf16 q,
+  k and v with Dh a multiple of 16 in 16..128.  TMA reads the operands,
+  so their data pointers and (B, T, head) strides must be positive
+  multiples of 16 bytes: :func:`check_tma_layout` raises on any other
+  layout, and such a call never goes to the other variant;
+* ``"simt"`` (``flash_attention_fwd``) for float32 and every other head
+  width (Dh 256, Dh not a multiple of 16).
+
+Each variant counts its own launches (:func:`launch_counts`).
 """
 
 from __future__ import annotations
@@ -16,26 +29,63 @@ import torch
 
 from .ref import NO_WINDOW
 
-#: the largest head dim the kernel's register tiles cover
+#: the largest head dim the SIMT kernel's register tiles cover
 MAX_HEAD_DIM = 256
+#: the head widths of the tensor-core kernel (at most two 64-column boxes)
+TC_HEAD_DIMS = range(16, 129, 16)
+#: TMA's alignment of a base address and of every stride, in bytes
+TMA_ALIGN = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("tensor_core", "simt")
+_ENTRY = {"tensor_core": "flash_attention_fwd_tc",
+          "simt": "flash_attention_fwd"}
 
-_launches = 0
+_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def launch_count() -> int:
-    """K2 launches since the last :func:`reset_launch_count`."""
-    return _launches
+    """K2 launches of both variants since the last
+    :func:`reset_launch_count`."""
+    return sum(_launches.values())
+
+
+def launch_counts() -> dict[str, int]:
+    """K2 launches by variant since the last :func:`reset_launch_count`."""
+    return dict(_launches)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for name in VARIANTS:
+        _launches[name] = 0
 
 
-def _kernel():
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The variant a call of ``dtype`` and head width ``head_dim`` takes:
+    ``"tensor_core"`` for bfloat16 with Dh in :data:`TC_HEAD_DIMS`, else
+    ``"simt"``.  Nothing else (layout, sequence length, masks) enters."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "simt"
+
+
+def check_tma_layout(name: str, data_ptr: int, strides: tuple[int, ...],
+                     element_size: int) -> None:
+    """Raise ValueError unless TMA can read the operand ``name``: its data
+    pointer and each of its (B, T, head) element ``strides`` must be a
+    positive multiple of :data:`TMA_ALIGN` bytes."""
+    if data_ptr % TMA_ALIGN or any(
+            s <= 0 or s * element_size % TMA_ALIGN for s in strides):
+        raise ValueError(
+            f"flash_attention_fwd: the tensor-core kernel reads {name} "
+            f"with TMA, which needs its data pointer and (B, T, head) "
+            f"strides to be positive multiples of {TMA_ALIGN} bytes; got "
+            f"pointer {data_ptr:#x}, strides {tuple(strides)} of "
+            f"{element_size}-byte elements")
+
+
+def _kernel(variant: str):
     from .build import load
-    fn = load("flash_attention").flash_attention_fwd
+    fn = getattr(load("flash_attention"), _ENTRY[variant])
     if fn.argtypes is None:             # pointers must not pass as int
         ll, i, f, p = (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                        ctypes.c_void_p)
@@ -55,9 +105,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q (B, Tq, H, Dh), k/v (B, Tk, KV, Dh) with KV dividing H (head h
     reads kv head h // (H/KV)), any strides with unit stride over Dh →
     (B, Tq, H, Dh) contiguous, in q's dtype.  float32 or bfloat16,
-    Dh ≤ 256, window ≥ 1.  Raises on anything else; never falls
-    back to the plain version."""
-    global _launches
+    Dh ≤ 256, window ≥ 1; :func:`route` picks the variant.  Raises on
+    anything else, and on a tensor-core call that TMA cannot read; never
+    falls back to the plain version or to the other variant."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_fwd needs q, k and v on one CUDA "
                          "device")
@@ -85,9 +135,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     win = NO_WINDOW if window is None else int(window)
     if not 1 <= win <= NO_WINDOW:
         raise ValueError(f"flash_attention_fwd: window {window} must be ≥ 1")
+    variant = route(q.dtype, Dh)
+    if variant == "tensor_core":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma_layout(name, t.data_ptr(), t.stride()[:3],
+                             t.element_size())
     scale = 1.0 / math.sqrt(Dh) if scale is None else float(scale)
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
-    fn = _kernel()
+    fn = _kernel(variant)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -98,7 +153,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale, int(bool(causal)), win, int(cap is not None),
                 0.0 if cap is None else float(cap), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
-    _launches += 1
+        raise RuntimeError(f"flash_attention {variant} kernel launch "
+                           f"failed: CUDA error {rc}")
+    _launches[variant] += 1
     return out

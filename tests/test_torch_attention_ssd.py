@@ -2,8 +2,9 @@
 package.  The port's plain versions — what its dispatch runs for CPU
 tensors — agree with the reference's ``flash_attention_ref`` /
 ``ssd_scan_ref`` and with its Pallas kernels in interpret mode over small
-cases of the reference sweeps (tests/test_kernels.py), and the kernel
-wrappers refuse CPU tensors.  The CUDA kernels are held to the plain
+cases of the reference sweeps (tests/test_kernels.py), the kernel
+wrappers refuse CPU tensors, and K2's route between its two variants and
+its TMA layout rule hold as pure functions.  The CUDA kernels are held to the plain
 versions in tests/test_torch_cuda.py, which imports no JAX so that it
 runs on the card's machine.
 
@@ -22,7 +23,8 @@ from repro.kernels.ref import flash_attention_ref as jax_flash_ref
 from repro.kernels.ref import ssd_scan_ref as jax_ssd_ref
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (check_tma_layout,
+                                                 flash_attention_fwd, route)
 from repro_torch.kernels.ref import (flash_attention_plain,
                                      flash_attention_ref, ssd_chunked,
                                      ssd_scan_plain, ssd_scan_ref)
@@ -126,6 +128,46 @@ def test_flash_wrapper_refuses_cpu_tensors():
     q = torch.zeros((1, 16, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.parametrize("dtype,Dh,variant", [
+    (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 112, "tensor_core"),
+    (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 16, "tensor_core"),
+    (torch.float32, 112, "simt"),
+    (torch.float32, 64, "simt"),
+    (torch.bfloat16, 256, "simt"),
+    (torch.bfloat16, 120, "simt"),
+    (torch.bfloat16, 8, "simt"),
+    (torch.bfloat16, 144, "simt"),
+])
+def test_flash_route_by_dtype_and_head_dim(dtype, Dh, variant):
+    """K2's variant is a function of the dtype and Dh alone: the same
+    answer for a contiguous tensor, a strided view and a misaligned one."""
+    t = torch.zeros((1, 8, 2, Dh + 1), dtype=dtype)
+    for view in (t[..., :Dh].contiguous(), t[..., :Dh], t[..., 1:]):
+        assert route(view.dtype, view.shape[-1]) == variant
+
+
+@pytest.mark.parametrize("ptr,strides,size,ok", [
+    (0x7f0000000000, (4096 * 32 * 112, 32 * 112, 112), 2, True),  # zamba2
+    (0x7f0000000000, (3 * 64 * 8, 3 * 64, 64), 2, True),  # fused qkv
+    (0x7f0000000002, (4096 * 32 * 112, 32 * 112, 112), 2, False),  # +1 elt
+    (0x7f0000000008, (4096 * 32 * 112, 32 * 112, 112), 2, False),
+    (0x7f0000000000, (4096 * 68, 68, 68), 2, False),  # 136-byte rows
+    (0x7f0000000000, (4096 * 64, 64, 0), 2, False),  # broadcast heads
+    (0x7f0000000000, (4096 * 64, -64, 64), 2, False),  # flipped T
+    (0x7f0000000000, (4096 * 64, 64, 4), 4, True),  # 16-byte stride
+])
+def test_flash_tma_layout_check(ptr, strides, size, ok):
+    """The tensor-core kernel's layout rule: pointer and (B, T, head)
+    strides positive multiples of 16 bytes, or ValueError."""
+    if ok:
+        check_tma_layout("q", ptr, strides, size)
+    else:
+        with pytest.raises(ValueError, match="16 bytes"):
+            check_tma_layout("q", ptr, strides, size)
 
 
 # ---------------------------------------------------------------------------

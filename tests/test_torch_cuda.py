@@ -8,7 +8,12 @@ where the card is:
 
 Tolerances: float32 1e-4 (another summation order, and the model's
 products in full float32 on both sides); bfloat16 2e-2, about two bf16
-ulps of outputs near 1."""
+ulps of outputs near 1.  K2's tensor-core variant (bf16) is also held to
+the float32 plain version of the same bf16 inputs: each output row
+within 1e-2 relative L2 error (bf16 rounds the output and P to 2^-9, a
+fifth of that; a key tile dropped from a row of up to 4,096 keys costs
+at least sqrt(128 / 4096) = 0.18), and, at a reduced prefill shape,
+within twice the error of ``scaled_dot_product_attention``."""
 
 import numpy as np
 import pytest
@@ -34,6 +39,23 @@ def _tol(dtype):
     return dict(rtol=t, atol=t)
 
 
+#: the largest relative L2 error of one K2 output row (over Dh) that a
+#: bf16 call may have against the float32 plain version
+ROW_REL_TOL = 1e-2
+
+
+def _errors(got, want):
+    """(max abs error, max relative L2 error of a row over Dh)."""
+    d = got.float() - want
+    row = d.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-6)
+    return float(d.abs().max()), float(row.max())
+
+
+def _f32_plain(q, k, v, **kw):
+    """The plain version on float32 copies of the same bf16 inputs."""
+    return flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+
+
 @pytest.mark.parametrize("T,Dh,KV,window,cap,causal,dtype", [
     (128, 64, 2, None, None, True, torch.float32),
     (96, 112, 4, None, None, True, torch.float32),
@@ -51,6 +73,74 @@ def test_k2_matches_plain(card, T, Dh, KV, window, cap, causal, dtype):
     want = flash_attention_plain(q, k, v, causal=causal, window=window,
                                  cap=cap)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("T,H,KV,Dh,window,cap,causal", [
+    (256, 4, 4, 64, None, None, True),
+    (256, 4, 4, 112, None, None, True),
+    (256, 4, 4, 128, None, None, True),
+    (256, 8, 2, 112, None, None, True),         # GQA
+    (384, 4, 4, 112, 48, 30.0, True),           # window and softcap
+    (256, 4, 4, 64, None, None, False),         # non-causal
+    (200, 4, 2, 112, None, None, True),         # ragged T
+    (1024, 2, 2, 112, 100, None, True),         # window skips whole tiles
+    (1024, 2, 2, 128, 100, None, False),
+    (200, 4, 2, 16, None, None, True),          # box wider than Dh
+    (200, 4, 2, 48, 70, None, True),
+])
+def test_k2_tensor_core_matches_float32_plain(card, T, H, KV, Dh, window,
+                                              cap, causal):
+    """bf16 calls take the tensor-core variant and agree with the float32
+    plain version of the same bf16 inputs."""
+    g = torch.Generator(device=card).manual_seed(2)
+    q, k, v = (torch.randn((2, T, h, Dh), generator=g,
+                           device=card).to(torch.bfloat16)
+               for h in (H, KV, KV))
+    kw = dict(causal=causal, window=window, cap=cap)
+    k2.reset_launch_count()
+    got = k2.flash_attention_fwd(q, k, v, **kw)
+    assert k2.launch_counts() == {"tensor_core": 1, "simt": 0}
+    want = _f32_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want, **_tol(torch.bfloat16))
+    assert _errors(got, want)[1] <= ROW_REL_TOL
+
+
+def test_k2_tensor_core_within_twice_sdpa(card):
+    """Reduced prefill shape (T 1024, H 8, Dh 112, causal): against the
+    float32 plain version, K2's max abs error and worst row error are at
+    most twice those of scaled_dot_product_attention on the same bf16
+    inputs."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn((1, 1024, 8, 112), generator=g,
+                           device=card).to(torch.bfloat16) for _ in range(3))
+    want = _f32_plain(q, k, v)
+    lib = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True)
+    k2_abs, k2_row = _errors(k2.flash_attention_fwd(q, k, v), want)
+    lib_abs, lib_row = _errors(lib.transpose(1, 2), want)
+    assert k2_abs <= 2 * lib_abs and k2_row <= 2 * lib_row, \
+        (k2_abs, lib_abs, k2_row, lib_row)
+
+
+def test_k2_misaligned_bf16_raises(card):
+    """A bf16 call that TMA cannot read raises; it never goes to the SIMT
+    variant."""
+    buf = torch.randn(2 * 64 * 4 * 64 + 1, device=card).to(torch.bfloat16)
+    shifted = buf[1:].view(2, 64, 4, 64)        # one element off 16 bytes
+    wide = torch.randn((2, 64, 4, 68), device=card).to(torch.bfloat16)
+    k2.reset_launch_count()
+    for q in (shifted, wide[..., :64]):
+        with pytest.raises(ValueError, match="16 bytes"):
+            k2.flash_attention_fwd(q, q, q)
+    assert k2.launch_count() == 0
+
+
+def test_k2_float32_takes_simt(card):
+    q = torch.randn((1, 128, 2, 112), device=card)
+    k2.reset_launch_count()
+    k2.flash_attention_fwd(q, q, q)
+    assert k2.launch_counts() == {"tensor_core": 0, "simt": 1}
 
 
 def test_k2_reads_strided_views(card):
