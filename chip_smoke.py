@@ -9,13 +9,14 @@ phases, one JSON line each, and exits non-zero if any fails:
 
 0. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions, the kernel build time; ``cuobjdump -sass`` of
-   K2's library must show ``HGMMA`` (the tensor-core kernel is on the
-   tensor cores), and the registers and spills of each tensor-core
-   instantiation from the ``-Xptxas -v`` report;
+   K2's and of K3's library must show ``HGMMA`` (the tensor-core kernels
+   are on the tensor cores), and the registers, stack and spills of each
+   tensor-core kernel from the ``-Xptxas -v`` report (K3's with no
+   spills);
 1. kernel K1 (``masked_select``) against its plain PyTorch version on the
    card, bitwise, over shapes, dtypes, densities, a tie-break row and
    all-invalid rows; kernel, plain, library-call and bound times at the
-   cluster-B step shape;
+   cluster-B step shape, on CUDA events and on the device's clock;
 2. bit-identity on the card: ``equilibrium_batch`` on CUDA against the
    port's host ``equilibrium_faithful`` on four small paper clusters,
    source bounds on and off, chunk 1 and 64, plus a row-capacity
@@ -41,16 +42,22 @@ phases, one JSON line each, and exits non-zero if any fails:
    raise; launches by variant; kernel, plain, SDPA and bound times;
 6. kernel K3 (``ssd_scan``) against its plain version over the reference
    sweep (G < H included), strided xBC views and the zamba2-7b shape;
-   kernel, plain and bound times there;
+   then bf16 cases of the tensor-core variant (chunk 64 and 128, G > 1
+   over 4 and more chunks, the model's dt and A ramps, strided xBC
+   views) against the float32 plain version of the same bf16 inputs; at
+   the zamba2-7b shape with the ramps, its max abs and worst row error
+   within 4 x the SIMT variant's on the same inputs (at chunk 32);
+   misaligned bf16 views raise; launches by variant; kernel, plain and
+   bound times;
 7. zamba2-7b at full width, 6 layers, float32: prefill on the card
    (through K2 and K3, launched 1 and 6 times) against the same
-   parameters on the CPU (plain versions), rtol = atol = 1e-3; K2 on its
-   SIMT variant;
+   parameters on the CPU (plain versions), rtol = atol = 1e-3; K2 and
+   K3 on their SIMT variants;
 8. zamba2-7b at full width and depth, bf16, B 1, T 4096 (the registry's
    ``prefill_32k`` cut from B 32, S 32768): finite logits, K2 launched
-   14 times, all on its tensor-core variant, and K3 81 times, seconds,
+   14 times and K3 81 times, all on their tensor-core variants, seconds,
    tokens/s, peak memory and the profiled device-time shares of K2, K3
-   and the rest;
+   (all of it the tensor-core kernel) and the rest;
 9. the kernel table line; the last line names the device.
 
 ``--plan-only`` runs phases 0 and 3 (scale 1) alone and prints no result
@@ -99,7 +106,9 @@ def check(cond: bool, msg: str) -> None:
 
 def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean milliseconds per call from CUDA events around ``iters``
-    back-to-back calls, after ``warmup`` calls."""
+    back-to-back calls, after ``warmup`` calls.  A call shorter than the
+    host's time to issue it reads the issue rate: :func:`device_ms`
+    gives the device's own time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -111,6 +120,46 @@ def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(prof, per_launch: bool = False) -> dict[str, float]:
+    """Device milliseconds by kernel name in a profile: the total, or
+    with ``per_launch`` the mean over the kernel's recorded launches."""
+    by_name: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for ev in prof.key_averages():
+        if str(ev.device_type) != "DeviceType.CUDA":
+            continue                    # host-side rows; kernels below
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+        counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    if per_launch:
+        return {k: v / max(counts[k], 1) for k, v in by_name.items()}
+    return by_name
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3
+              ) -> tuple[float, dict[str, float]]:
+    """Device milliseconds per call on the device's clock: the profiler's
+    mean device time per launch of each kernel that ``fn`` launches
+    (once per call each), summed, so that the host's issue rate cannot
+    set it; and the same by kernel name.  Means over the recorded
+    launches: over ``iters`` back-to-back calls the profiler may keep
+    fewer than ``iters`` launches of a kernel (PERF.md §6)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = kernel_ms(prof, per_launch=True)
+    check(sum(by_name.values()) > 0, "the profiler saw no device time")
+    return sum(by_name.values()), by_name
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +184,7 @@ def phase_env() -> dict:
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "python": sys.version.split()[0],
            "kernels_built": sorted(reports), "build_s": build_s,
-           **k2_instructions(build)}
+           **k2_instructions(build), **k3_instructions(build)}
     emit("env", **env)
     return env
 
@@ -159,19 +208,26 @@ def ptxas_kernels(log: str) -> dict:
     return out
 
 
-def k2_instructions(build) -> dict:
-    """K2's library on the tensor cores: ``cuobjdump -sass`` must show
-    HGMMA (wgmma); the registers and spills of each tensor-core
-    instantiation (by Dh) and any wgmma serialisation ptxas reported."""
-    lib = build.library_path("flash_attention")
+def sass_hgmma(build, name: str, kernel: str) -> int:
+    """HGMMA (wgmma) instructions in ``cuobjdump -sass`` of
+    ``csrc/<name>.cu``'s library; fails at none."""
+    lib = build.library_path(name)
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300)
     check(sass.returncode == 0, f"cuobjdump -sass {lib.name} failed: "
                                 f"{sass.stderr.strip()[-400:]}")
     hgmma = len(re.findall(r"\bHGMMA\b", sass.stdout))
-    check(hgmma > 0, "K2's library has no HGMMA instruction: the "
-                     "tensor-core kernel does not run on the tensor cores")
+    check(hgmma > 0, f"{kernel}'s library has no HGMMA instruction: the "
+                     f"tensor-core kernel does not run on the tensor cores")
+    return hgmma
+
+
+def k2_instructions(build) -> dict:
+    """K2's library on the tensor cores: ``cuobjdump -sass`` must show
+    HGMMA (wgmma); the registers and spills of each tensor-core
+    instantiation (by Dh) and any wgmma serialisation ptxas reported."""
+    hgmma = sass_hgmma(build, "flash_attention", "K2")
     log = build.ptxas_report("flash_attention")
     tc = {f"Dh{16 * int(m.group(1))}": stats
           for name, stats in ptxas_kernels(log).items()
@@ -182,6 +238,27 @@ def k2_instructions(build) -> dict:
             "k2_tensor_core_ptxas": dict(sorted(
                 tc.items(), key=lambda kv: int(kv[0][2:]))),
             "k2_wgmma_serialized": [line.strip() for line in
+                                    log.splitlines()
+                                    if "serializ" in line]}
+
+
+def k3_instructions(build) -> dict:
+    """K3's library on the tensor cores: ``cuobjdump -sass`` must show
+    HGMMA; the registers, stack and spills of each tensor-core
+    instantiation (by chunk), none of which may spill."""
+    hgmma = sass_hgmma(build, "ssd_scan", "K3")
+    log = build.ptxas_report("ssd_scan")
+    tc = {f"Q{m.group(1)}": stats
+          for name, stats in ptxas_kernels(log).items()
+          if (m := re.search(r"ssd_scan_kernel_tcILi(\d+)E", name))}
+    check(len(tc) == 2, f"the ptxas report lists {len(tc)} tensor-core "
+                        f"instantiations of K3, expected 2")
+    spilled = {k: v for k, v in tc.items()
+               if v.get("spill_stores") or v.get("spill_loads")}
+    check(not spilled, f"K3's tensor-core kernels spill: {spilled}")
+    return {"k3_sass_hgmma": hgmma,
+            "k3_tensor_core_ptxas": dict(sorted(tc.items())),
+            "k3_wgmma_serialized": [line.strip() for line in
                                     log.splitlines()
                                     if "serializ" in line]}
 
@@ -238,6 +315,8 @@ def phase_k1() -> dict:
     k_ms = time_cuda(lambda: masked_select_fwd(v, u))
     p_ms = time_cuda(lambda: masked_select_ref(v, u))
     lib_ms = time_cuda(lambda: torch.where(v, u, inf).min(dim=1))
+    k_dev, _ = device_ms(lambda: masked_select_fwd(v, u), 50)
+    lib_dev, _ = device_ms(lambda: torch.where(v, u, inf).min(dim=1), 50)
     # least work: read the mask and util once, write any and dst once;
     # one comparison per mask entry
     nbytes = M * D + D * 8 + M * (1 + 4)
@@ -245,7 +324,8 @@ def phase_k1() -> dict:
     ops_ms = M * D / VECTOR_OPS_PER_S * 1e3
     out = {"cases": len(cases), "max_abs_err": worst, "shape": [M, D],
            "dtype": "float64", "ms": k_ms, "plain_ms": p_ms,
-           "library_ms": lib_ms, "bytes": nbytes, "ops": M * D,
+           "library_ms": lib_ms, "device_ms": k_dev,
+           "library_device_ms": lib_dev, "bytes": nbytes, "ops": M * D,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     emit("k1", **out)
@@ -489,11 +569,12 @@ PREFILL_B, PREFILL_T = 1, 4096
 K2_KERNEL, K3_KERNEL = "flash_fwd_kernel", "ssd_scan_kernel"
 
 
-#: the largest relative L2 error of one K2 output row (over Dh) that a
-#: bf16 call may have against the float32 plain version of its inputs:
-#: bf16 rounds the output and P to 2^-9, a fifth of it; a key tile
-#: dropped from a row of up to 4,096 keys costs at least
-#: sqrt(128 / 4096) = 0.18
+#: the largest relative L2 error of one K2 or K3 output row (over Dh or
+#: P) that a bf16 call may have against the float32 plain version of its
+#: inputs: bf16 rounds the output (and K2's P) to 2^-9, a fifth of it; a
+#: key tile dropped from a row of up to 4,096 keys costs at least
+#: sqrt(128 / 4096) = 0.18; K3's float32 operands as one bf16 term each
+#: (not two) reach 0.026 (PERF.md §6)
 ROW_REL_TOL = 1e-2
 
 
@@ -657,6 +738,9 @@ def phase_k2(card: str) -> dict:
     plain_ms = time_cuda(lambda: flash_attention_plain(q, k, v), 5, 1)
     lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20, 2)
+    dev_ms, _ = device_ms(lambda: k2.flash_attention_fwd(q, k, v))
+    lib_dev_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
     pairs = T * (T + 1) // 2                  # legal (query, key) pairs
     out = {"card": card, "cases": len(cases) + len(tc_cases),
            "max_abs_err": max(worst.values()),
@@ -674,23 +758,58 @@ def phase_k2(card: str) -> dict:
            "shape": {"B": B, "T": T, "H": H, "Dh": Dh, "dtype": "bfloat16",
                      "causal": True},
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
            "library": "torch.nn.functional.scaled_dot_product_attention",
            **bound(4 * B * T * H * Dh * 2, 4 * Dh * pairs * B * H, bf16)}
     emit("k2", **out)
     return out
 
 
-def ssd_inputs(gen, B, T, H, G, P, N, dtype):
+#: the tensor-core K3's max abs and worst row error against the float32
+#: plain version may be at most this many times the SIMT variant's on the
+#: same bf16 inputs (zamba2 shape, the model's dt and A ramps;
+#: PERF.md §6)
+K3_TC_ERR_FACTOR = 4.0
+#: K3's tensor-core kernel as the profiler names it (its flags are zeroed
+#: by a fill kernel of the wrapper's, outside the name)
+K3_TC_KERNEL = "ssd_scan_kernel_tc"
+
+
+def ssd_inputs(gen, B, T, H, G, P, N, dtype, ramp: bool = False):
+    """x, dt, A, B, C for K3.  The reference suite's draws
+    (tests/test_kernels.py:141-143: dt = softplus(N(0,1) - 1), A =
+    -exp(0.3 N(0,1))) decay the carried state to about e^-50 per chunk of
+    128; ``ramp`` takes the model's instead (models/lm.py::_init_leaf:
+    dt_bias from softplus^-1 of 1e-3 .. 1e-1 over the heads plus N(0,
+    0.5^2) per token, A = -(1 .. 16)), where the state carries."""
     dev = gen.device
     x = torch.randn((B, T, H, P), generator=gen, device=dev).to(dtype)
-    dt = torch.nn.functional.softplus(
-        torch.randn((B, T, H), generator=gen, device=dev) - 1)
-    A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.3)
+    if ramp:
+        from repro_torch.models.lm import ssd_ramps
+        dt_h, A = ssd_ramps(H, device=dev)
+        dt = torch.nn.functional.softplus(
+            torch.log(torch.expm1(dt_h))
+            + 0.5 * torch.randn((B, T, H), generator=gen, device=dev))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, T, H), generator=gen, device=dev) - 1)
+        A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.3)
     Bm = (torch.randn((B, T, G, N), generator=gen, device=dev) * 0.5
           ).to(dtype)
     Cm = (torch.randn((B, T, G, N), generator=gen, device=dev) * 0.5
           ).to(dtype)
     return x, dt, A, Bm, Cm
+
+
+def xbc_views(gen, B, T, H, P, N, dtype, ramp: bool, pad: int = 0):
+    """x, dt, A, B, C with x, B and C as the SSD layer passes them: views
+    into one (B, T, H P + 2 N + pad) xBC tensor (G 1)."""
+    xbc = torch.randn((B, T, H * P + 2 * N + pad), generator=gen,
+                      device="cuda").to(dtype)
+    x, Bm, Cm, _ = torch.split(xbc, [H * P, N, N, pad], dim=-1)
+    _, dt, A, _, _ = ssd_inputs(gen, B, T, H, 1, P, N, torch.float32, ramp)
+    return (x.reshape(B, T, H, P), dt, A, Bm.reshape(B, T, 1, N),
+            Cm.reshape(B, T, 1, N))
 
 
 def phase_k3(card: str) -> dict:
@@ -711,6 +830,7 @@ def phase_k3(card: str) -> dict:
     worst = {"float32": 0.0, "bfloat16": 0.0}
     zamba2_err = {}                           # max abs err at its shape
     tol_use = 0.0
+    k3.reset_launch_count()
     for B, T, H, G, P, N, chunk, dtype in cases:
         ins = ssd_inputs(gen, B, T, H, G, P, N, dtype)
         err, use = compare(ops.ssd_scan(*ins, chunk=chunk),
@@ -723,33 +843,124 @@ def phase_k3(card: str) -> dict:
         check(use <= 1, f"K3 differs from its plain version at B{B} T{T} H{H} "
                   f"G{G} P{P} N{N} Q{chunk} {key} (max abs err {err})")
     # x, B and C as the SSD layer passes them: views into one xBC tensor
-    B, T, H, P, N = 1, 512, 8, 64, 64
-    xbc = torch.randn((B, T, H * P + 2 * N), generator=gen, device="cuda")
-    x, Bm, Cm = torch.split(xbc, [H * P, N, N], dim=-1)
-    _, dt, A, _, _ = ssd_inputs(gen, B, T, H, 1, P, N, f32)
-    ins = (x.reshape(B, T, H, P), dt, A, Bm.reshape(B, T, 1, N),
-           Cm.reshape(B, T, 1, N))
+    ins = xbc_views(gen, 1, 512, 8, 64, 64, f32, ramp=False)
     err, use = compare(ops.ssd_scan(*ins), ssd_scan_plain(*ins))
     check(use <= 1, f"K3 on strided xBC views (max abs err {err})")
     worst["float32"] = max(worst["float32"], err)
     tol_use = max(tol_use, use)
+    sweep_launches = k3.launch_counts()
 
+    # the tensor-core variant: bf16 cases against the float32 plain
+    # version of the same bf16 inputs, each row within ROW_REL_TOL
+    # (name, (B, T, H, G, chunk, ramp)), P = N = 64
+    tc_cases = [("tc T256 Q128", (2, 256, 4, 1, 128, False)),
+                ("tc T256 Q128 ramp", (2, 256, 4, 1, 128, True)),
+                ("tc T1024 G2 Q128 ramp (8 chunks)",
+                 (1, 1024, 8, 2, 128, True)),
+                ("tc T512 G4 Q64 ramp (8 chunks)", (2, 512, 16, 4, 64, True)),
+                ("tc T64 Q64 (one chunk)", (2, 64, 4, 1, 64, False))]
+    runs = [(name, ssd_inputs(gen, B, T, H, G, 64, 64, bf16, ramp), chunk)
+            for name, (B, T, H, G, chunk, ramp) in tc_cases]
+    runs.append(("tc xBC views ramp",
+                 xbc_views(gen, 1, 512, 8, 64, 64, bf16, ramp=True), 128))
+    tc_abs = tc_row = tc_use = 0.0
+    k3.reset_launch_count()
+    for name, ins, chunk in runs:
+        got = ops.ssd_scan(*ins, chunk=chunk)
+        want = ssd_scan_plain(*(t.float() for t in ins))
+        abs_err, row_err = attention_errors(got, want)
+        _, use = compare(got, want, bf16)
+        tc_abs, tc_row = max(tc_abs, abs_err), max(tc_row, row_err)
+        tc_use = max(tc_use, use)
+        check(use <= 1 and row_err <= ROW_REL_TOL,
+              f"K3 tensor-core variant differs from the float32 plain "
+              f"version on {name} (max abs err {abs_err}, worst row "
+              f"error {row_err})")
+    tc_launches = k3.launch_counts()
+    check(tc_launches == {"tensor_core": len(runs), "simt": 0},
+          f"the bf16 cases launched {tc_launches}, expected all "
+          f"{len(runs)} on the tensor-core variant")
+
+    # a bf16 call that TMA cannot read raises and launches nothing
+    buf = torch.randn(2 * 128 * 4 * 64 + 1, device="cuda").to(bf16)
+    x_off = buf[1:].view(2, 128, 4, 64)
+    _, dt, A, Bm, Cm = ssd_inputs(gen, 2, 128, 4, 1, 64, 64, bf16)
+    misaligned = {"x pointer one element off": (x_off, dt, A, Bm, Cm),
+                  "xBC T stride of 1,288 bytes": xbc_views(
+                      gen, 1, 128, 8, 64, 64, bf16, ramp=False, pad=4)}
+    k3.reset_launch_count()
+    raised = []
+    for name, bad in misaligned.items():
+        try:
+            k3.ssd_scan_fwd(*bad)
+        except ValueError:
+            raised.append(name)
+    check(raised == list(misaligned) and k3.launch_count() == 0,
+          f"misaligned bf16 views: raised on {raised} of "
+          f"{list(misaligned)}, {k3.launch_count()} launches")
+
+    # the zamba2-7b shape with the model's ramps: the tensor-core variant
+    # within K3_TC_ERR_FACTOR of the SIMT variant, both against the
+    # float32 plain version; the SIMT variant computes the same function
+    # at chunk 32, where route() sends bf16
     B, T, H, G, P, N, Q = PREFILL_B, PREFILL_T, 112, 1, 64, 64, 128
+    ins = ssd_inputs(gen, B, T, H, G, P, N, bf16, ramp=True)
+    want = ssd_scan_plain(*(t.float() for t in ins))
+    k3.reset_launch_count()
+    tc_z_abs, tc_z_row = attention_errors(k3.ssd_scan_fwd(*ins, chunk=Q),
+                                          want)
+    simt_z_abs, simt_z_row = attention_errors(
+        k3.ssd_scan_fwd(*ins, chunk=32), want)
+    check(k3.launch_counts() == {"tensor_core": 1, "simt": 1},
+          f"zamba2 gate launches {k3.launch_counts()}")
+    gate = {"tc_max_abs_err": tc_z_abs, "simt_max_abs_err": simt_z_abs,
+            "tc_worst_row_rel_err": tc_z_row,
+            "simt_worst_row_rel_err": simt_z_row,
+            "y_max_abs": float(want.abs().max()),
+            "inputs": "the model's dt and A ramps",
+            "simt_chunk": 32,
+            "reference": "ssd_scan_plain on float32 copies of the bf16 "
+                         "inputs",
+            "limit": f"tensor core <= {K3_TC_ERR_FACTOR} x SIMT, each; "
+                     f"row <= {ROW_REL_TOL}"}
+    check(tc_z_abs <= K3_TC_ERR_FACTOR * simt_z_abs
+          and tc_z_row <= K3_TC_ERR_FACTOR * simt_z_row
+          and tc_z_row <= ROW_REL_TOL,
+          f"K3 at the zamba2 shape is less accurate than allowed: {gate}")
+    del want
+    torch.cuda.empty_cache()
+
     ins = ssd_inputs(gen, B, T, H, G, P, N, bf16)
     ms = time_cuda(lambda: k3.ssd_scan_fwd(*ins, chunk=Q), 20, 2)
+    dev_ms, kernels = device_ms(lambda: k3.ssd_scan_fwd(*ins, chunk=Q))
+    kernel_dev_ms = sum(v for k, v in kernels.items() if K3_TC_KERNEL in k)
+    check(kernel_dev_ms > 0, f"the profile misses K3's tensor-core kernel: "
+                             f"{kernels}")
     plain_ms = time_cuda(lambda: ssd_scan_plain(*ins), 2, 0)
     tri = Q * (Q + 1) // 2                    # lower-triangle (t, u) pairs
     macs = B * H * (T // Q) * (tri * N + tri * P + 2 * Q * N * P)
     nbytes = 2 * B * T * H * P * 2 + B * T * H * 4 + H * 4 \
         + 2 * B * T * G * N * 2
-    out = {"card": card, "cases": len(cases) + 1,
+    out = {"card": card, "cases": len(cases) + 1 + len(runs),
            "max_abs_err": max(worst.values()),
            "max_abs_err_by_dtype": worst, "tolerance": "rtol = atol = "
            "1e-4 (float32), 2e-2 (bfloat16)", "tolerance_used": tol_use,
            "zamba2_shape_max_abs_err": zamba2_err,
+           "tensor_core_vs_float32": {
+               "cases": len(runs), "max_abs_err": tc_abs,
+               "worst_row_rel_err": tc_row, "tolerance_used": tc_use,
+               "row_rel_tol": ROW_REL_TOL},
+           "zamba2_gate": gate, "misaligned_raised": raised,
+           "launches_by_variant": {"sweep": sweep_launches,
+                                   "tensor_core_cases": tc_launches},
+           "variant": "tensor_core",
            "shape": {"B": B, "T": T, "H": H, "G": G, "P": P, "N": N,
                      "chunk": Q, "dtype": "bfloat16 (dt, A float32)"},
-           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "ms": ms, "device_ms": dev_ms,
+           "kernel_device_ms": kernel_dev_ms,
+           "device_ms_by_kernel": {k[:80]: v for k, v in kernels.items()},
+           "plain_ms": plain_ms, "library_ms": None,
+           "library_device_ms": None,
            "library": "none: no single PyTorch call computes the scan",
            **bound(nbytes, 2 * macs, bf16)}
     emit("k3", **out)
@@ -785,6 +996,7 @@ def phase_lm_parity(card: str) -> dict:
     card_s = time.perf_counter() - t0
     launches = (k2.launch_count(), k3.launch_count())
     k2_variants = k2.launch_counts()
+    k3_variants = k3.launch_counts()
     t0 = time.perf_counter()
     want = prefill(on_cpu, {"tokens": tokens})
     cpu_s = time.perf_counter() - t0
@@ -798,12 +1010,16 @@ def phase_lm_parity(card: str) -> dict:
     check(k2_variants["simt"] == 1, f"the float32 prefill's K2 call took "
                                     f"{k2_variants}, expected the SIMT "
                                     f"variant")
+    check(k3_variants == {"tensor_core": 0, "simt": 6},
+          f"the float32 prefill's K3 calls took {k3_variants}, expected "
+          f"all 6 on the SIMT variant")
     check(torch.allclose(got, want, rtol=1e-3, atol=1e-3),
           f"6-layer prefill: card differs from CPU (max abs err {err})")
     out = {"card": card, "config": "zamba2-7b, n_layers 6, float32",
            "B": 1, "T": 256, "k2_launches": launches[0],
            "k2_launches_by_variant": k2_variants,
-           "k3_launches": launches[1], "max_abs_err": err,
+           "k3_launches": launches[1],
+           "k3_launches_by_variant": k3_variants, "max_abs_err": err,
            "logit_scale": float(want.abs().max()),
            "tolerance": "rtol = atol = 1e-3", "setup_s": setup_s,
            "card_s_first_call": card_s, "cpu_s": cpu_s}
@@ -845,6 +1061,7 @@ def phase_prefill(card: str) -> dict:
         if run == 0:
             launches = (k2.launch_count(), k3.launch_count())
             k2_variants = k2.launch_counts()
+            k3_variants = k3.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     check(tuple(logits.shape) == (PREFILL_B, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
@@ -854,6 +1071,9 @@ def phase_prefill(card: str) -> dict:
     check(k2_variants == {"tensor_core": 14, "simt": 0},
           f"zamba2-7b prefill's K2 launches by variant {k2_variants}, "
           f"expected all 14 on the tensor-core variant")
+    check(k3_variants == {"tensor_core": 81, "simt": 0},
+          f"zamba2-7b prefill's K3 launches by variant {k3_variants}, "
+          f"expected all 81 on the tensor-core variant")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -861,18 +1081,15 @@ def phase_prefill(card: str) -> dict:
         prefill(model, batch)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    by_name: dict[str, float] = {}
-    for ev in prof.key_averages():
-        if str(ev.device_type) != "DeviceType.CUDA":
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    by_name = kernel_ms(prof)
     busy = sum(by_name.values())
     check(busy > 0, "the profiler saw no device time in the prefill")
     k2_ms = sum(v for k, v in by_name.items() if K2_KERNEL in k)
     k3_ms = sum(v for k, v in by_name.items() if K3_KERNEL in k)
+    k3_tc_ms = sum(v for k, v in by_name.items() if K3_TC_KERNEL in k)
+    check(k3_tc_ms > 0 and abs(k3_tc_ms - k3_ms) <= 1e-6 * k3_ms,
+          f"the prefill profile's K3 time {k3_ms} ms is not all its "
+          f"tensor-core kernel's ({k3_tc_ms} ms)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     median = sorted(seconds)[1]
     out = {"card": card, "config": "zamba2-7b, 81 layers, full width",
@@ -887,6 +1104,7 @@ def phase_prefill(card: str) -> dict:
            "peak_mem_bytes": peak, "k2_launches": launches[0],
            "k2_launches_by_variant": k2_variants,
            "k3_launches": launches[1],
+           "k3_launches_by_variant": k3_variants,
            "profile": {"wall_ms": prof_wall * 1e3, "device_ms": busy,
                        "idle_share": 1.0 - busy / (prof_wall * 1e3),
                        "k2_ms": k2_ms, "k3_ms": k3_ms,
@@ -904,15 +1122,19 @@ def phase_prefill(card: str) -> dict:
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  phase: dict) -> dict:
     """One kernel of the table line; ``variant`` names the one the main
-    path ran where the kernel has more than one."""
+    path ran where the kernel has more than one; ``ms`` is on CUDA
+    events around back-to-back calls, ``device_ms`` on the device's
+    clock (the profiler's kernel time per call)."""
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "variant": phase.get("variant"),
             "matches_plain": True, "max_abs_err": phase["max_abs_err"],
-            "ms": phase["ms"], "plain_ms": phase["plain_ms"],
+            "ms": phase["ms"], "device_ms": phase["device_ms"],
+            "plain_ms": phase["plain_ms"],
             "bound_ms": phase["bound_ms"], "bound_by": phase["bound_by"],
-            "library_ms": phase["library_ms"]}
+            "library_ms": phase["library_ms"],
+            "library_device_ms": phase["library_device_ms"]}
 
 
 def main() -> int:

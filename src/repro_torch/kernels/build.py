@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch/`` at the repo
 root — a directory ``.gitignore`` lists.  The library's file name carries
-a hash of the source and the flags, so an edited source rebuilds and
-concurrent builds never load a half-written file (each writes a
-private temporary and renames it into place).  The compiler's report
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header rebuilds and concurrent builds never load
+a half-written file (each writes a private temporary and renames it
+into place).  The compiler's report
 (``-Xptxas -v``: registers, spills) is kept beside each library.  Nothing
 is built when this module is imported; :func:`load` builds on the first
 call and :func:`build` starts one ``nvcc`` per source, all at once.
@@ -46,7 +47,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    of every header in ``csrc/`` (``*.cuh``) and of the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -12,7 +12,7 @@ alone:
 * ``"tensor_core"`` (``flash_attention_fwd_tc``: TMA, wgmma) for bf16 q,
   k and v with Dh a multiple of 16 in 16..128.  TMA reads the operands,
   so their data pointers and (B, T, head) strides must be positive
-  multiples of 16 bytes: :func:`check_tma_layout` raises on any other
+  multiples of 16 bytes: :func:`.tma.check_tma_layout` raises on any other
   layout, and such a call never goes to the other variant;
 * ``"simt"`` (``flash_attention_fwd``) for float32 and every other head
   width (Dh 256, Dh not a multiple of 16).
@@ -28,13 +28,12 @@ import math
 import torch
 
 from .ref import NO_WINDOW
+from .tma import check_tma_layout
 
 #: the largest head dim the SIMT kernel's register tiles cover
 MAX_HEAD_DIM = 256
 #: the head widths of the tensor-core kernel (at most two 64-column boxes)
 TC_HEAD_DIMS = range(16, 129, 16)
-#: TMA's alignment of a base address and of every stride, in bytes
-TMA_ALIGN = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("tensor_core", "simt")
 _ENTRY = {"tensor_core": "flash_attention_fwd_tc",
@@ -66,21 +65,6 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tensor_core"
     return "simt"
-
-
-def check_tma_layout(name: str, data_ptr: int, strides: tuple[int, ...],
-                     element_size: int) -> None:
-    """Raise ValueError unless TMA can read the operand ``name``: its data
-    pointer and each of its (B, T, head) element ``strides`` must be a
-    positive multiple of :data:`TMA_ALIGN` bytes."""
-    if data_ptr % TMA_ALIGN or any(
-            s <= 0 or s * element_size % TMA_ALIGN for s in strides):
-        raise ValueError(
-            f"flash_attention_fwd: the tensor-core kernel reads {name} "
-            f"with TMA, which needs its data pointer and (B, T, head) "
-            f"strides to be positive multiples of {TMA_ALIGN} bytes; got "
-            f"pointer {data_ptr:#x}, strides {tuple(strides)} of "
-            f"{element_size}-byte elements")
 
 
 def _kernel(variant: str):

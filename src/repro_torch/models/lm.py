@@ -168,6 +168,17 @@ class LM(nn.Module):
 # Initialisation
 
 
+def ssd_ramps(n_heads: int, dtype: torch.dtype = torch.float32,
+              device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD heads' step sizes and decays at initialisation, from which
+    the reference sets ``dt_bias`` and ``A_log``: dt log-spaced from 1e-3
+    to 1e-1 and A = -(1 .. 16), over the heads."""
+    dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), n_heads,
+                                  dtype=dtype, device=device))
+    A = -torch.linspace(1.0, 16.0, n_heads, dtype=dtype, device=device)
+    return dt, A
+
+
 def _init_leaf(param: torch.Tensor, name: str, cfg: ModelConfig,
                gen: torch.Generator) -> None:
     """The reference's per-leaf distributions: zero RMS scales (scale
@@ -180,10 +191,9 @@ def _init_leaf(param: torch.Tensor, name: str, cfg: ModelConfig,
         if name in _NORMS or name == "conv_b":
             param.zero_()
         elif name == "A_log":
-            param.copy_(torch.log(torch.linspace(1.0, 16.0, shape[0])))
+            param.copy_(torch.log(-ssd_ramps(shape[0])[1]))
         elif name == "dt_bias":
-            dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1),
-                                          shape[0], dtype=torch.float64))
+            dt = ssd_ramps(shape[0], torch.float64)[0]
             param.copy_(torch.log(torch.expm1(dt)))
         elif name == "D_skip":
             param.fill_(1.0)

@@ -2,9 +2,11 @@
 package.  The port's plain versions — what its dispatch runs for CPU
 tensors — agree with the reference's ``flash_attention_ref`` /
 ``ssd_scan_ref`` and with its Pallas kernels in interpret mode over small
-cases of the reference sweeps (tests/test_kernels.py), the kernel
-wrappers refuse CPU tensors, and K2's route between its two variants and
-its TMA layout rule hold as pure functions.  The CUDA kernels are held to the plain
+cases of the reference sweeps (tests/test_kernels.py) and, for K3, on
+the model's dt and A ramps across several chunks; the kernel wrappers
+refuse CPU tensors; and K2's and K3's routes between their two variants
+and the TMA layout rule of both hold as pure functions.  The CUDA
+kernels are held to the plain
 versions in tests/test_torch_cuda.py, which imports no JAX so that it
 runs on the card's machine.
 
@@ -23,12 +25,13 @@ from repro.kernels.ref import flash_attention_ref as jax_flash_ref
 from repro.kernels.ref import ssd_scan_ref as jax_ssd_ref
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (check_tma_layout,
-                                                 flash_attention_fwd, route)
+from repro_torch.kernels.flash_attention import flash_attention_fwd, route
 from repro_torch.kernels.ref import (flash_attention_plain,
                                      flash_attention_ref, ssd_chunked,
                                      ssd_scan_plain, ssd_scan_ref)
+from repro_torch.kernels.ssd_scan import route as k3_route
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+from repro_torch.kernels.tma import check_tma_layout
 
 TOL = {np.float32: dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -159,10 +162,20 @@ def test_flash_route_by_dtype_and_head_dim(dtype, Dh, variant):
     (0x7f0000000000, (4096 * 64, 64, 0), 2, False),  # broadcast heads
     (0x7f0000000000, (4096 * 64, -64, 64), 2, False),  # flipped T
     (0x7f0000000000, (4096 * 64, 64, 4), 4, True),  # 16-byte stride
+    # K3's x, B and C as zamba2's views of xBC (B, T, 7,296) bf16: x (T
+    # stride 14,592 bytes, head stride 128), B at 14,336 bytes and C at
+    # 14,464 bytes in
+    (0x7f0000000000, (4096 * 7296, 7296, 64), 2, True),
+    (0x7f0000000000 + 14336, (4096 * 7296, 7296, 64), 2, True),
+    (0x7f0000000000 + 14464, (4096 * 7296, 7296, 64), 2, True),
+    (0x7f0000000000, (4096 * 112 * 64, 112 * 64, 64), 2, True),  # x alone
+    (0x7f0000000002, (4096 * 7296, 7296, 64), 2, False),  # one element off
+    (0x7f0000000000, (128 * 644, 644, 64), 2, False),  # 1,288-byte T stride
 ])
 def test_flash_tma_layout_check(ptr, strides, size, ok):
-    """The tensor-core kernel's layout rule: pointer and (B, T, head)
-    strides positive multiples of 16 bytes, or ValueError."""
+    """The layout rule of the tensor-core kernels (K2's q, k, v and K3's
+    x, B, C): pointer and (B, T, head or group) strides positive multiples
+    of 16 bytes, or ValueError."""
     if ok:
         check_tma_layout("q", ptr, strides, size)
     else:
@@ -174,11 +187,21 @@ def test_flash_tma_layout_check(ptr, strides, size, ok):
 # K3
 
 
-def _ssd_inputs(rng, B, T, H, G, P, N, dtype):
+def _ssd_inputs(rng, B, T, H, G, P, N, dtype, ramp=False):
+    """The reference suite's draws; with ``ramp`` the model's dt and A
+    (``models/lm.py::_init_leaf``: dt_bias from softplus^-1 of 1e-3 ..
+    1e-1 over the heads, plus N(0, 0.5^2) per token; A = -(1 .. 16)),
+    under which the state carried across chunks counts."""
     x = rng.standard_normal((B, T, H, P)).astype(np.float32)
-    dt = np.log1p(np.exp(rng.standard_normal((B, T, H)) - 1)).astype(
-        np.float32)
-    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)
+    if ramp:
+        bias = np.log(np.expm1(np.exp(np.linspace(np.log(1e-3),
+                                                  np.log(1e-1), H))))
+        dt = np.log1p(np.exp(bias + 0.5 * rng.standard_normal((B, T, H))))
+        A = -np.linspace(1.0, 16.0, H)
+    else:
+        dt = np.log1p(np.exp(rng.standard_normal((B, T, H)) - 1))
+        A = -np.exp(rng.standard_normal(H) * 0.3)
+    dt, A = dt.astype(np.float32), A.astype(np.float32)
     Bm = (rng.standard_normal((B, T, G, N)) * 0.5).astype(np.float32)
     Cm = (rng.standard_normal((B, T, G, N)) * 0.5).astype(np.float32)
     return ([_pair(a, dtype) for a in (x, dt)] + [_pair(A, np.float32)]
@@ -237,3 +260,46 @@ def test_ssd_wrapper_refuses_cpu_tensors():
                                      4, 4, np.float32)]
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_fwd(*ins, chunk=16)
+
+
+@pytest.mark.parametrize("T,chunk,dtype", [
+    (64, 16, np.float32),           # 4 chunks
+    (128, 16, np.float32),          # 8 chunks
+    (128, 32, "bfloat16"),          # 4 chunks
+])
+def test_ssd_chunked_matches_kernel_on_ramps(T, chunk, dtype):
+    """The port's plain chunk loop against the JAX kernel in interpret
+    mode on the model's dt and A ramps, groups included (H 4, G 2): the
+    carried state is not negligible there (with the suite's draws it
+    decays to about e^-50 per chunk of 128 and hides a dropped state)."""
+    ins = _ssd_inputs(np.random.default_rng(6), 2, T, 4, 2, 16, 8, dtype,
+                      ramp=True)
+    (xj, xt), (dj, dtt), (aj, at), (bj, bt), (cj, ct) = ins
+    y, state = ssd_chunked(xt, dtt, at, bt, ct, chunk)
+    ker = jax_ssd(xj, dj, aj, bj, cj, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(_np(y), _np(ker), **TOL[dtype])
+    # the carried state matters on these inputs: dropping it at every
+    # chunk boundary changes y by far more than the tolerance
+    dropped = torch.cat([ssd_chunked(*(t[:, c:c + chunk] for t in
+                                       (xt, dtt)), at,
+                                     bt[:, c:c + chunk], ct[:, c:c + chunk],
+                                     chunk)[0]
+                         for c in range(0, T, chunk)], dim=1)
+    assert float((dropped.float() - y.float()).abs().max()) > 0.05
+    assert float(state.abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("dtype,P,N,chunk,variant", [
+    (torch.bfloat16, 64, 64, 128, "tensor_core"),
+    (torch.bfloat16, 64, 64, 64, "tensor_core"),
+    (torch.float32, 64, 64, 128, "simt"),
+    (torch.bfloat16, 16, 16, 16, "simt"),        # reduced configs
+    (torch.bfloat16, 64, 64, 32, "simt"),        # T 32 cuts the chunk
+    (torch.bfloat16, 64, 64, 100, "simt"),
+    (torch.bfloat16, 128, 64, 128, "simt"),
+    (torch.bfloat16, 64, 128, 128, "simt"),
+    (torch.float16, 64, 64, 128, "simt"),
+])
+def test_ssd_route_by_dtype_and_widths(dtype, P, N, chunk, variant):
+    """K3's variant is a function of the dtype, P, N and the chunk alone."""
+    assert k3_route(dtype, P, N, chunk) == variant

@@ -13,7 +13,10 @@ the float32 plain version of the same bf16 inputs: each output row
 within 1e-2 relative L2 error (bf16 rounds the output and P to 2^-9, a
 fifth of that; a key tile dropped from a row of up to 4,096 keys costs
 at least sqrt(128 / 4096) = 0.18), and, at a reduced prefill shape,
-within twice the error of ``scaled_dot_product_attention``."""
+within twice the error of ``scaled_dot_product_attention``.  K3's
+tensor-core variant (bf16, P = N = 64) is held the same way to the
+float32 plain version, each (token, head) row within 1e-2, and within
+4 x the SIMT variant's error on the same inputs."""
 
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ import torch
 from repro_torch.kernels import flash_attention as k2
 from repro_torch.kernels import ssd_scan as k3
 from repro_torch.kernels.ref import flash_attention_plain, ssd_scan_plain
+from repro_torch.models.lm import ssd_ramps
 
 pytestmark = pytest.mark.cuda
 
@@ -155,15 +159,36 @@ def test_k2_reads_strided_views(card):
                                **_tol(torch.float32))
 
 
-def _ssd_inputs(card, B, T, H, G, P, N, dtype, seed=0):
+def _ssd_inputs(card, B, T, H, G, P, N, dtype, seed=0, ramp=False):
+    """The reference suite's draws, or with ``ramp`` the model's dt and A
+    ramps (dt about 1e-3 .. 1e-1 over the heads, A = -(1 .. 16)), under
+    which the carried state survives a chunk."""
     g = torch.Generator(device=card).manual_seed(seed)
     x = torch.randn((B, T, H, P), generator=g, device=card)
-    dt = torch.nn.functional.softplus(
-        torch.randn((B, T, H), generator=g, device=card) - 1)
-    A = -torch.exp(torch.randn((H,), generator=g, device=card) * 0.3)
+    if ramp:
+        dt_h, A = ssd_ramps(H, device=card)
+        dt = torch.nn.functional.softplus(
+            torch.log(torch.expm1(dt_h))
+            + 0.5 * torch.randn((B, T, H), generator=g, device=card))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, T, H), generator=g, device=card) - 1)
+        A = -torch.exp(torch.randn((H,), generator=g, device=card) * 0.3)
     Bm = torch.randn((B, T, G, N), generator=g, device=card) * 0.5
     Cm = torch.randn((B, T, G, N), generator=g, device=card) * 0.5
     return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)
+
+
+def _xbc_views(card, T, H, dtype, pad=0, ramp=True):
+    """x, dt, A, B, C with x, B and C as the SSD layer passes them: views
+    into one (1, T, 64 H + 128 + pad) xBC tensor, P = N = 64, G 1."""
+    g = torch.Generator(device=card).manual_seed(4)
+    xbc = torch.randn((1, T, 64 * H + 128 + pad), generator=g,
+                      device=card).to(dtype)
+    x, Bm, Cm, _ = torch.split(xbc, [64 * H, 64, 64, pad], dim=-1)
+    _, dt, A, _, _ = _ssd_inputs(card, 1, T, H, 1, 64, 64, dtype, ramp=ramp)
+    return (x.reshape(1, T, H, 64), dt, A, Bm.reshape(1, T, 1, 64),
+            Cm.reshape(1, T, 1, 64))
 
 
 @pytest.mark.parametrize("T,P,N,chunk,G,dtype", [
@@ -171,12 +196,85 @@ def _ssd_inputs(card, B, T, H, G, P, N, dtype, seed=0):
     (128, 16, 16, 32, 2, torch.float32),
     (64, 16, 16, 64, 4, torch.float32),
     (256, 64, 64, 128, 1, torch.bfloat16),
+    (256, 64, 64, 32, 1, torch.bfloat16),       # bf16 on the SIMT variant
 ])
 def test_k3_matches_plain(card, T, P, N, chunk, G, dtype):
     ins = _ssd_inputs(card, 2, T, 4, G, P, N, dtype)
     got = k3.ssd_scan_fwd(*ins, chunk=chunk)
     torch.testing.assert_close(got.float(), ssd_scan_plain(*ins).float(),
                                **_tol(dtype))
+
+
+@pytest.mark.parametrize("T,H,G,chunk,ramp", [
+    (256, 4, 1, 128, False),
+    (256, 4, 1, 128, True),
+    (1024, 8, 2, 128, True),        # 8 chunks, two groups
+    (512, 16, 4, 64, True),         # chunk 64, 8 chunks, four groups
+    (64, 4, 1, 64, False),          # one chunk
+])
+def test_k3_tensor_core_matches_float32_plain(card, T, H, G, chunk, ramp):
+    """bf16 calls with P = N = 64 take the tensor-core variant and agree
+    with the float32 plain version of the same bf16 inputs, each (token,
+    head) row within 1e-2 relative L2; the ramps make the state carried
+    across chunks count."""
+    ins = _ssd_inputs(card, 2, T, H, G, 64, 64, torch.bfloat16, seed=5,
+                      ramp=ramp)
+    k3.reset_launch_count()
+    got = k3.ssd_scan_fwd(*ins, chunk=chunk)
+    assert k3.launch_counts() == {"tensor_core": 1, "simt": 0}
+    want = ssd_scan_plain(*(t.float() for t in ins))
+    torch.testing.assert_close(got.float(), want, **_tol(torch.bfloat16))
+    assert _errors(got, want)[1] <= ROW_REL_TOL
+
+
+def test_k3_tensor_core_within_four_times_simt(card):
+    """Reduced prefill shape with the model's ramps (T 1024, H 32): the
+    tensor-core variant's max abs and worst row error against the float32
+    plain version are at most 4 x those of the SIMT variant on the same
+    bf16 inputs (the same function at chunk 32, where bf16 goes SIMT)."""
+    ins = _ssd_inputs(card, 1, 1024, 32, 1, 64, 64, torch.bfloat16, seed=6,
+                      ramp=True)
+    want = ssd_scan_plain(*(t.float() for t in ins))
+    k3.reset_launch_count()
+    tc_abs, tc_row = _errors(k3.ssd_scan_fwd(*ins), want)
+    simt_abs, simt_row = _errors(k3.ssd_scan_fwd(*ins, chunk=32), want)
+    assert k3.launch_counts() == {"tensor_core": 1, "simt": 1}
+    assert tc_abs <= 4 * simt_abs and tc_row <= 4 * simt_row, \
+        (tc_abs, simt_abs, tc_row, simt_row)
+
+
+def test_k3_tensor_core_reads_xbc_views(card):
+    """x, B and C as column slices of the layer's xBC tensor: TMA reads
+    the strides, no copy is made."""
+    ins = _xbc_views(card, 512, 8, torch.bfloat16)
+    assert not ins[0].is_contiguous()
+    k3.reset_launch_count()
+    got = k3.ssd_scan_fwd(*ins)
+    assert k3.launch_counts() == {"tensor_core": 1, "simt": 0}
+    want = ssd_scan_plain(*(t.float() for t in ins))
+    assert _errors(got, want)[1] <= ROW_REL_TOL
+
+
+def test_k3_misaligned_bf16_raises(card):
+    """A bf16 call that TMA cannot read raises; it never goes to the SIMT
+    variant."""
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 2, 128, 4, 1, 64, 64,
+                                   torch.bfloat16)
+    buf = torch.zeros(x.numel() + 1, device=card, dtype=torch.bfloat16)
+    shifted = buf[1:].view(x.shape)             # one element off 16 bytes
+    k3.reset_launch_count()
+    for bad in ((shifted, dt, A, Bm, Cm),
+                _xbc_views(card, 128, 8, torch.bfloat16, pad=4)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            k3.ssd_scan_fwd(*bad)
+    assert k3.launch_count() == 0
+
+
+def test_k3_float32_takes_simt(card):
+    ins = _ssd_inputs(card, 1, 256, 4, 1, 64, 64, torch.float32)
+    k3.reset_launch_count()
+    k3.ssd_scan_fwd(*ins)
+    assert k3.launch_counts() == {"tensor_core": 0, "simt": 1}
 
 
 def test_prefill_on_card_matches_cpu(card):
