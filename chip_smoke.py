@@ -48,7 +48,13 @@ phases, one JSON line each, and exits non-zero if any fails:
    the zamba2-7b shape with the ramps, its max abs and worst row error
    within 4 x the SIMT variant's on the same inputs (at chunk 32);
    misaligned bf16 views raise; launches by variant; kernel, plain and
-   bound times;
+   bound times; the SIMT variant at mamba2-2.7b's shape (H 80, P 64,
+   N 128, chunk 128, the ramps) in float32 (1e-4) and bf16 (each row
+   within 1e-2 of the float32 plain version), with its kernel, plain and
+   bound times; the tensor-core workspace (``workspace_bytes``) at the
+   zamba2 cell and at B 32, T 32768, H 112, and one tensor-core call at
+   B 1, T 32768, H 112 against the plain version, with the memory it
+   allocated beyond its inputs and output;
 7. zamba2-7b at full width, 6 layers, float32: prefill on the card
    (through K2 and K3, launched 1 and 6 times) against the same
    parameters on the CPU (plain versions), rtol = atol = 1e-3; K2 and
@@ -57,8 +63,27 @@ phases, one JSON line each, and exits non-zero if any fails:
    ``prefill_32k`` cut from B 32, S 32768): finite logits, K2 launched
    14 times and K3 81 times, all on their tensor-core variants, seconds,
    tokens/s, peak memory and the profiled device-time shares of K2, K3
-   (all of it the tensor-core kernel) and the rest;
-9. the kernel table line; the last line names the device.
+   (all of it the tensor-core kernel) and the rest, the profile holding
+   every one of the run's K2 and K3 launches;
+9. mamba2-2.7b at full width, 4 layers, float32: prefill on the card
+   (K3 launched 4 times, SIMT; K2 never) against the same parameters on
+   the CPU, rtol = atol = 1e-3;
+10. mamba2-2.7b at full width and depth (64 layers, 2,702,579,200
+    float32 parameters), bf16, B 1, T 4096 (the same cut as phase 8):
+    finite (1, 50280) logits, K3 launched 64 times, all SIMT, K2 never;
+    seconds, tokens/s, peak memory and the profiled device-time shares of
+    K3 (all of it the SIMT kernel) and the rest, as in phase 8;
+11. the kernel table line (K3 once: the tensor-core variant's launches
+    and times, and the SIMT variant's at mamba2's shape beside them); the
+    last line names the device.
+
+Kernel times come in two forms: ``ms``, CUDA events around calls the
+host issues back to back, and ``device_ms``, CUDA events around calls
+queued behind a sleep kernel, which the host's issue rate cannot set.
+The prefills' profiles must hold every K2 and K3 launch the run counted:
+the H100's profiler drops whole calls' records from some sessions, so a
+session that lost any is run again, three sessions at most; the sessions
+each profile took are printed before the kernel table line.
 
 ``--plan-only`` runs phases 0 and 3 (scale 1) alone and prints no result
 line: the way to time two trees in turns within one run on one card.
@@ -86,6 +111,14 @@ SRC = ROOT / "src"
 #: (NVIDIA data sheet, 700 W), for the bytes and operations bounds
 HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
+#: clock cycles of the sleep kernel that holds the stream while the host
+#: queues the calls :func:`device_ms` times (about 0.1 s at the H100's
+#: clock)
+SLEEP_CYCLES = 200_000_000
+#: profile sessions tried for one measurement before the run fails for
+#: lost launch records (:func:`profiled`), and each measurement's count
+PROFILE_TRIES = 3
+PROFILE_LOG: list[dict] = []
 #: the committed reference records of cluster B's full convergence, by
 #: scale
 BENCH_ROWS = {1: "planner.tail.B1x.batch", 2: "planner.tail.B2x.batch"}
@@ -122,44 +155,84 @@ def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(prof, per_launch: bool = False) -> dict[str, float]:
-    """Device milliseconds by kernel name in a profile: the total, or
-    with ``per_launch`` the mean over the kernel's recorded launches."""
-    by_name: dict[str, float] = {}
-    counts: dict[str, int] = {}
+def kernel_rows(prof) -> dict[str, tuple[float, int]]:
+    """Device milliseconds and recorded launches by kernel name in a
+    profile."""
+    rows: dict[str, tuple[float, int]] = {}
     for ev in prof.key_averages():
         if str(ev.device_type) != "DeviceType.CUDA":
             continue                    # host-side rows; kernels below
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
-        counts[ev.key] = counts.get(ev.key, 0) + ev.count
-    if per_launch:
-        return {k: v / max(counts[k], 1) for k, v in by_name.items()}
-    return by_name
+        ms, n = rows.get(ev.key, (0.0, 0))
+        rows[ev.key] = (ms + us / 1e3, n + ev.count)
+    return rows
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3
-              ) -> tuple[float, dict[str, float]]:
-    """Device milliseconds per call on the device's clock: the profiler's
-    mean device time per launch of each kernel that ``fn`` launches
-    (once per call each), summed, so that the host's issue rate cannot
-    set it; and the same by kernel name.  Means over the recorded
-    launches: over ``iters`` back-to-back calls the profiler may keep
-    fewer than ``iters`` launches of a kernel (PERF.md §6)."""
+def matching(rows: dict[str, tuple[float, int]], pattern: str
+             ) -> tuple[float, int]:
+    """Milliseconds and launches of the rows whose name holds
+    ``pattern``."""
+    hits = [v for k, v in rows.items() if pattern in k]
+    return sum(ms for ms, _ in hits), sum(n for _, n in hits)
+
+
+def profiled(run, missing, what: str
+             ) -> tuple[dict[str, tuple[float, int]], float]:
+    """:func:`kernel_rows` of a profile of ``run()`` (which ends in a
+    synchronize) and its wall seconds.  ``missing(rows)`` holds the
+    launches the profile recorded to the launches ``run()`` made and
+    says what is missing, or returns None.  On the H100 the profiler
+    drops the records of whole calls from some sessions, and of every
+    call from a few (PERF.md §6): a session that misses any launch is run
+    again, up to :data:`PROFILE_TRIES` sessions in all, and the run fails
+    if none holds every launch.  No number comes from a session that
+    lost records.  Each profile's sessions go to :data:`PROFILE_LOG`."""
     from torch.profiler import ProfilerActivity, profile
+    for n in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall = time.perf_counter() - t0
+        rows = kernel_rows(prof)
+        gap = missing(rows)
+        if gap is None:
+            PROFILE_LOG.append({"profile": what, "sessions": n})
+            return rows, wall
+        print(f"chip_smoke: profile session {n} of {what} lost launch "
+              f"records: {gap}", file=sys.stderr, flush=True)
+    fail(f"{PROFILE_TRIES} profile sessions of {what} all lost launch "
+         f"records; the last: {gap}")
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per call: CUDA events around ``iters`` calls of
+    ``fn`` that the host queues while a sleep kernel holds the stream, so
+    that the device runs them back to back and the host's issue rate
+    cannot set the time (:func:`time_cuda` reads that rate where a call
+    is shorter than its issue).  Fails if the host took longer to queue
+    the calls than the sleep lasted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = kernel_ms(prof, per_launch=True)
-    check(sum(by_name.values()) > 0, "the profiler saw no device time")
-    return sum(by_name.values()), by_name
+    held, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    held.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    sleep_ms = held.elapsed_time(start)
+    check(issue_ms < sleep_ms, f"the host took {issue_ms} ms to queue "
+                               f"{iters} calls, longer than the "
+                               f"{sleep_ms} ms sleep that held them")
+    return start.elapsed_time(end) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -315,8 +388,8 @@ def phase_k1() -> dict:
     k_ms = time_cuda(lambda: masked_select_fwd(v, u))
     p_ms = time_cuda(lambda: masked_select_ref(v, u))
     lib_ms = time_cuda(lambda: torch.where(v, u, inf).min(dim=1))
-    k_dev, _ = device_ms(lambda: masked_select_fwd(v, u), 50)
-    lib_dev, _ = device_ms(lambda: torch.where(v, u, inf).min(dim=1), 50)
+    k_dev = device_ms(lambda: masked_select_fwd(v, u), 50)
+    lib_dev = device_ms(lambda: torch.where(v, u, inf).min(dim=1), 50)
     # least work: read the mask and util once, write any and dst once;
     # one comparison per mask entry
     nbytes = M * D + D * 8 + M * (1 + 4)
@@ -565,8 +638,13 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: zamba2-7b prefill at full width and depth: the registry's prefill_32k
 #: (B 32, S 32768) cut for the run's time limit and the simple kernels
 PREFILL_B, PREFILL_T = 1, 4096
-#: K2 and K3 kernel names as the profiler lists them
-K2_KERNEL, K3_KERNEL = "flash_fwd_kernel", "ssd_scan_kernel"
+#: K2 (either variant) as the profiler names it
+K2_KERNEL = "flash_fwd_kernel"
+#: each K3 variant as the profiler names it (its template follows the
+#: name; the tensor-core one's flags are zeroed by a fill kernel of the
+#: wrapper's, outside the name)
+K3_KERNELS = {"tensor_core": "ssd_scan_kernel_tc<",
+              "simt": "ssd_scan_kernel<"}
 
 
 #: the largest relative L2 error of one K2 or K3 output row (over Dh or
@@ -738,8 +816,8 @@ def phase_k2(card: str) -> dict:
     plain_ms = time_cuda(lambda: flash_attention_plain(q, k, v), 5, 1)
     lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20, 2)
-    dev_ms, _ = device_ms(lambda: k2.flash_attention_fwd(q, k, v))
-    lib_dev_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
+    dev_ms = device_ms(lambda: k2.flash_attention_fwd(q, k, v))
+    lib_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
     pairs = T * (T + 1) // 2                  # legal (query, key) pairs
     out = {"card": card, "cases": len(cases) + len(tc_cases),
@@ -770,9 +848,6 @@ def phase_k2(card: str) -> dict:
 #: same bf16 inputs (zamba2 shape, the model's dt and A ramps;
 #: PERF.md §6)
 K3_TC_ERR_FACTOR = 4.0
-#: K3's tensor-core kernel as the profiler names it (its flags are zeroed
-#: by a fill kernel of the wrapper's, outside the name)
-K3_TC_KERNEL = "ssd_scan_kernel_tc"
 
 
 def ssd_inputs(gen, B, T, H, G, P, N, dtype, ramp: bool = False):
@@ -932,15 +1007,12 @@ def phase_k3(card: str) -> dict:
 
     ins = ssd_inputs(gen, B, T, H, G, P, N, bf16)
     ms = time_cuda(lambda: k3.ssd_scan_fwd(*ins, chunk=Q), 20, 2)
-    dev_ms, kernels = device_ms(lambda: k3.ssd_scan_fwd(*ins, chunk=Q))
-    kernel_dev_ms = sum(v for k, v in kernels.items() if K3_TC_KERNEL in k)
-    check(kernel_dev_ms > 0, f"the profile misses K3's tensor-core kernel: "
-                             f"{kernels}")
+    dev_ms = device_ms(lambda: k3.ssd_scan_fwd(*ins, chunk=Q))
     plain_ms = time_cuda(lambda: ssd_scan_plain(*ins), 2, 0)
-    tri = Q * (Q + 1) // 2                    # lower-triangle (t, u) pairs
-    macs = B * H * (T // Q) * (tri * N + tri * P + 2 * Q * N * P)
-    nbytes = 2 * B * T * H * P * 2 + B * T * H * 4 + H * 4 \
-        + 2 * B * T * G * N * 2
+    del ins
+    torch.cuda.empty_cache()
+    wide = k3_wide_state(gen)
+    ring = k3_ring(gen)
     out = {"card": card, "cases": len(cases) + 1 + len(runs),
            "max_abs_err": max(worst.values()),
            "max_abs_err_by_dtype": worst, "tolerance": "rtol = atol = "
@@ -957,19 +1029,133 @@ def phase_k3(card: str) -> dict:
            "shape": {"B": B, "T": T, "H": H, "G": G, "P": P, "N": N,
                      "chunk": Q, "dtype": "bfloat16 (dt, A float32)"},
            "ms": ms, "device_ms": dev_ms,
-           "kernel_device_ms": kernel_dev_ms,
-           "device_ms_by_kernel": {k[:80]: v for k, v in kernels.items()},
            "plain_ms": plain_ms, "library_ms": None,
            "library_device_ms": None,
            "library": "none: no single PyTorch call computes the scan",
-           **bound(nbytes, 2 * macs, bf16)}
+           **k3_bound(B, T, H, G, P, N, Q),
+           "simt_mamba2": wide, "workspace": ring}
     emit("k3", **out)
     return out
 
 
-def phase_lm_parity(card: str) -> dict:
-    """zamba2-7b at full width, depth cut to 6 layers (one shared-block
-    application), float32: prefill on the card through K2 and K3 against
+def k3_bound(B, T, H, G, P, N, Q) -> dict:
+    """K3's least time at a bf16 shape (dt and A float32): x and y,
+    dt, B and C at group width moved once; the scores and y_intra over
+    the lower triangle, y_inter and the state update at the bf16 rate."""
+    tri = Q * (Q + 1) // 2                    # lower-triangle (t, u) pairs
+    macs = B * H * (T // Q) * (tri * N + tri * P + 2 * Q * N * P)
+    nbytes = 2 * B * T * H * P * 2 + B * T * H * 4 + H * 4 \
+        + 2 * B * T * G * N * 2
+    return bound(nbytes, 2 * macs, torch.bfloat16)
+
+
+#: mamba2-2.7b's SSD call in its prefill (B 1, T 4096): 80 heads, G 1,
+#: P 64, N 128, chunk 128
+MAMBA2_SSD = dict(B=PREFILL_B, T=PREFILL_T, H=80, G=1, P=64, N=128, Q=128)
+
+
+def k3_wide_state(gen) -> dict:
+    """The SIMT K3 at mamba2-2.7b's shape on the model's ramps: float32
+    within rtol = atol = 1e-4 of the plain version; bf16 with every (token,
+    head) row within ROW_REL_TOL of the float32 plain version of the same
+    inputs; then its times in bf16, the prefill's dtype."""
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.kernels.ref import ssd_scan_plain
+    B, T, H, G, P, N, Q = MAMBA2_SSD.values()
+    check(k3.route(torch.bfloat16, P, N, Q) == "simt",
+          "route sends mamba2's N 128 off the SIMT variant")
+    k3.reset_launch_count()
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = ssd_inputs(gen, B, T, H, G, P, N, dtype, ramp=True)
+        got = k3.ssd_scan_fwd(*ins, chunk=Q)
+        want = ssd_scan_plain(*(t.float() for t in ins))
+        abs_err, row_err = attention_errors(got, want)
+        _, use = compare(got, want, dtype)
+        key = str(dtype)[6:]
+        errs[key] = {"max_abs_err": abs_err, "worst_row_rel_err": row_err,
+                     "tolerance_used": use}
+        check(use <= 1 and (dtype == torch.float32
+                            or row_err <= ROW_REL_TOL),
+              f"SIMT K3 at mamba2's shape in {key} differs from the "
+              f"float32 plain version: {errs[key]}")
+        del got, want
+    check(k3.launch_counts() == {"tensor_core": 0, "simt": 2},
+          f"mamba2-shape K3 launches {k3.launch_counts()}")
+    ms = time_cuda(lambda: k3.ssd_scan_fwd(*ins, chunk=Q), 10, 2)
+    dev_ms = device_ms(lambda: k3.ssd_scan_fwd(*ins, chunk=Q), 10)
+    plain_ms = time_cuda(lambda: ssd_scan_plain(*ins), 2, 0)
+    del ins
+    torch.cuda.empty_cache()
+    return {"variant": "simt", "errors": errs,
+            "tolerance": "rtol = atol = 1e-4 (float32); bfloat16 each row "
+                         f"<= {ROW_REL_TOL} of the float32 plain version",
+            "inputs": "the model's dt and A ramps",
+            "shape": {**MAMBA2_SSD, "dtype": "bfloat16 (dt, A float32)"},
+            "smem_bytes": k3._library().ssd_scan_smem_bytes(Q, P, N),
+            "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **k3_bound(B, T, H, G, P, N, Q)}
+
+
+def k3_ring(gen) -> dict:
+    """The tensor-core K3's workspace: :func:`workspace_bytes` at the
+    zamba2 cell and at the registry's prefill_32k (B 32, T 32,768, H
+    112), beside one slot per chunk as before the ring; then one call at
+    B 1, T 32,768, H 112 (256 chunks a head, each ring slot written 128
+    times) against the float32 plain version, with the memory it
+    allocated beyond its inputs and output."""
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.kernels.ref import ssd_scan_plain
+    P = N = 64
+    Q = 128
+    sizes = {}
+    for name, (B, T, H) in (("zamba2_cell", (PREFILL_B, PREFILL_T, 112)),
+                            ("prefill_32k", (32, 32768, 112))):
+        sizes[name] = {"B": B, "T": T, "H": H,
+                       "workspace_bytes": k3.workspace_bytes(B, H, T, P, N,
+                                                             Q),
+                       "one_slot_per_chunk_bytes": B * H * (T // Q) * P * N
+                       * 4 + (B * H * (T // Q) + 1) * 4}
+        emit("k3_workspace", **{"case": name, **sizes[name]})
+    check(sizes["prefill_32k"]["workspace_bytes"] <= 128 * 2 ** 20,
+          f"K3's workspace at prefill_32k: {sizes['prefill_32k']}")
+    B, T, H = 1, 32768, 112
+    ins = ssd_inputs(gen, B, T, H, 1, P, N, torch.bfloat16, ramp=True)
+    k3.reset_launch_count()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = k3.ssd_scan_fwd(*ins, chunk=Q)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before \
+        - got.numel() * got.element_size()
+    check(k3.launch_counts() == {"tensor_core": 1, "simt": 0},
+          f"T 32768 K3 launches {k3.launch_counts()}")
+    want = ssd_scan_plain(*(t.float() for t in ins))
+    abs_err, row_err = attention_errors(got, want)
+    _, use = compare(got, want, torch.bfloat16)
+    ws = k3.workspace_bytes(B, H, T, P, N, Q)
+    long_call = {"B": B, "T": T, "H": H, "chunks_per_head": T // Q,
+                 "max_abs_err": abs_err, "worst_row_rel_err": row_err,
+                 "tolerance_used": use, "workspace_bytes": ws,
+                 "allocated_beyond_inputs_output_bytes": extra}
+    check(use <= 1 and row_err <= ROW_REL_TOL,
+          f"tensor-core K3 at T 32768 differs from the float32 plain "
+          f"version: {long_call}")
+    check(extra <= ws + 2 ** 20, f"tensor-core K3 at T 32768 allocated "
+                                 f"{extra} bytes beyond its inputs and "
+                                 f"output, its workspace is {ws}")
+    del ins, got, want
+    torch.cuda.empty_cache()
+    return {**sizes, "t32768_call": long_call}
+
+
+def phase_lm_parity(card: str, arch: str = "zamba2-7b", n_layers: int = 6,
+                    want: tuple[int, int] = (1, 6),
+                    phase: str = "lm_parity") -> dict:
+    """``arch`` at full width, depth cut to ``n_layers`` (zamba2: one
+    shared-block application), float32: prefill on the card through K2
+    and K3, launched ``want`` times, all on their SIMT variants, against
     the same parameters' prefill on the CPU through the plain versions."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -978,7 +1164,7 @@ def phase_lm_parity(card: str) -> dict:
     from repro_torch.models import LM, build_model, prefill
     torch.backends.cuda.matmul.allow_tf32 = False    # full float32
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=6,
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               dtype="float32")
     t0 = time.perf_counter()
     on_card = build_model(cfg, seed=0)
@@ -998,45 +1184,52 @@ def phase_lm_parity(card: str) -> dict:
     k2_variants = k2.launch_counts()
     k3_variants = k3.launch_counts()
     t0 = time.perf_counter()
-    want = prefill(on_cpu, {"tokens": tokens})
+    want_logits = prefill(on_cpu, {"tokens": tokens})
     cpu_s = time.perf_counter() - t0
     got = got.cpu()
-    err = float((got - want).abs().max())
+    err = float((got - want_logits).abs().max())
     del on_card, on_cpu
     torch.cuda.empty_cache()
-    check(bool(torch.isfinite(got).all()), "6-layer logits not finite")
-    check(launches == (1, 6), f"6-layer prefill launched K2, K3 "
-                              f"{launches} times, expected (1, 6)")
-    check(k2_variants["simt"] == 1, f"the float32 prefill's K2 call took "
-                                    f"{k2_variants}, expected the SIMT "
-                                    f"variant")
-    check(k3_variants == {"tensor_core": 0, "simt": 6},
-          f"the float32 prefill's K3 calls took {k3_variants}, expected "
-          f"all 6 on the SIMT variant")
-    check(torch.allclose(got, want, rtol=1e-3, atol=1e-3),
-          f"6-layer prefill: card differs from CPU (max abs err {err})")
-    out = {"card": card, "config": "zamba2-7b, n_layers 6, float32",
+    what = f"{arch} {n_layers}-layer prefill"
+    check(bool(torch.isfinite(got).all()), f"{what}: logits not finite")
+    check(launches == want, f"{what} launched K2, K3 {launches} times, "
+                            f"expected {want}")
+    check(k2_variants == {"tensor_core": 0, "simt": want[0]},
+          f"the float32 {what}'s K2 calls took {k2_variants}, expected "
+          f"all on the SIMT variant")
+    check(k3_variants == {"tensor_core": 0, "simt": want[1]},
+          f"the float32 {what}'s K3 calls took {k3_variants}, expected "
+          f"all {want[1]} on the SIMT variant")
+    check(torch.allclose(got, want_logits, rtol=1e-3, atol=1e-3),
+          f"{what}: card differs from CPU (max abs err {err})")
+    out = {"card": card, "config": f"{arch}, n_layers {n_layers}, float32",
            "B": 1, "T": 256, "k2_launches": launches[0],
            "k2_launches_by_variant": k2_variants,
            "k3_launches": launches[1],
            "k3_launches_by_variant": k3_variants, "max_abs_err": err,
-           "logit_scale": float(want.abs().max()),
+           "logit_scale": float(want_logits.abs().max()),
            "tolerance": "rtol = atol = 1e-3", "setup_s": setup_s,
            "card_s_first_call": card_s, "cpu_s": cpu_s}
-    emit("lm_parity", **out)
+    emit(phase, **out)
     return out
 
 
-def phase_prefill(card: str) -> dict:
-    """zamba2-7b at full width and depth, bf16 compute over float32
-    parameters: one warm-up, three timed prefills (the first counted),
-    and a profiled one."""
-    from torch.profiler import ProfilerActivity, profile
+def phase_prefill(card: str, arch: str = "zamba2-7b", k2_want: int = 14,
+                  k3_want: dict[str, int] | None = None,
+                  phase: str = "zamba2_prefill") -> dict:
+    """``arch`` at full width and depth, bf16 compute over float32
+    parameters: one warm-up, three timed prefills (the first counted: K2
+    launched ``k2_want`` times, all on its tensor-core variant, and K3 by
+    variant ``k3_want``, by default 81 all on the tensor cores), and a
+    profiled one, which must record the same launches, and no K3 time on
+    a variant that ``k3_want`` expects none of."""
+    if k3_want is None:
+        k3_want = {"tensor_core": 81, "simt": 0}
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import ssd_scan as k3
     from repro_torch.models import build_model, param_count, prefill
-    cfg = get_config("zamba2-7b")
+    cfg = get_config(arch)
     spec = SHAPES["prefill_32k"]
     t0 = time.perf_counter()
     model = build_model(cfg, seed=0)
@@ -1059,40 +1252,42 @@ def phase_prefill(card: str) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         if run == 0:
-            launches = (k2.launch_count(), k3.launch_count())
             k2_variants = k2.launch_counts()
             k3_variants = k3.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     check(tuple(logits.shape) == (PREFILL_B, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
-          "zamba2-7b prefill logits not finite or of the wrong shape")
-    check(launches == (14, 81), f"zamba2-7b prefill launched K2, K3 "
-                                f"{launches} times, expected (14, 81)")
-    check(k2_variants == {"tensor_core": 14, "simt": 0},
-          f"zamba2-7b prefill's K2 launches by variant {k2_variants}, "
-          f"expected all 14 on the tensor-core variant")
-    check(k3_variants == {"tensor_core": 81, "simt": 0},
-          f"zamba2-7b prefill's K3 launches by variant {k3_variants}, "
-          f"expected all 81 on the tensor-core variant")
+          f"{arch} prefill logits not finite or of the wrong shape")
+    check(k2_variants == {"tensor_core": k2_want, "simt": 0},
+          f"{arch} prefill's K2 launches by variant {k2_variants}, "
+          f"expected all {k2_want} on the tensor-core variant")
+    check(k3_variants == k3_want, f"{arch} prefill's K3 launches by "
+                                  f"variant {k3_variants}, expected "
+                                  f"{k3_want}")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def run():
         prefill(model, batch)
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    by_name = kernel_ms(prof)
-    busy = sum(by_name.values())
-    check(busy > 0, "the profiler saw no device time in the prefill")
-    k2_ms = sum(v for k, v in by_name.items() if K2_KERNEL in k)
-    k3_ms = sum(v for k, v in by_name.items() if K3_KERNEL in k)
-    k3_tc_ms = sum(v for k, v in by_name.items() if K3_TC_KERNEL in k)
-    check(k3_tc_ms > 0 and abs(k3_tc_ms - k3_ms) <= 1e-6 * k3_ms,
-          f"the prefill profile's K3 time {k3_ms} ms is not all its "
-          f"tensor-core kernel's ({k3_tc_ms} ms)")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+
+    def missing(rows):
+        k2_seen = matching(rows, K2_KERNEL)[1]
+        k3_seen = {v: matching(rows, pat) for v, pat in K3_KERNELS.items()}
+        if k2_seen == k2_want \
+                and {v: n for v, (_, n) in k3_seen.items()} == k3_want \
+                and all((ms > 0) == (k3_want[v] > 0)
+                        for v, (ms, _) in k3_seen.items()):
+            return None
+        return (f"{k2_seen} K2 launches and K3's (ms, launches) by variant "
+                f"{k3_seen}; the run made {k2_want} and {k3_want}")
+    rows, prof_wall = profiled(run, missing, f"the {arch} prefill")
+    busy = sum(ms for ms, _ in rows.values())
+    k2_ms = matching(rows, K2_KERNEL)[0]
+    k3_ms = sum(matching(rows, pat)[0] for pat in K3_KERNELS.values())
+    top = sorted(((k, ms) for k, (ms, _) in rows.items()),
+                 key=lambda kv: -kv[1])[:10]
     median = sorted(seconds)[1]
-    out = {"card": card, "config": "zamba2-7b, 81 layers, full width",
+    out = {"card": card,
+           "config": f"{arch}, {cfg.n_layers} layers, full width",
            "params": n_params, "param_count_analytic": param_count(cfg),
            "dtype": "bfloat16 compute, float32 parameters",
            "B": PREFILL_B, "T": PREFILL_T,
@@ -1101,9 +1296,9 @@ def phase_prefill(card: str) -> dict:
                        "why": "the run's time limit and the simple kernels"},
            "init_s": init_s, "seconds": seconds, "median_s": median,
            "tokens_per_s": PREFILL_B * PREFILL_T / median,
-           "peak_mem_bytes": peak, "k2_launches": launches[0],
+           "peak_mem_bytes": peak, "k2_launches": k2_want,
            "k2_launches_by_variant": k2_variants,
-           "k3_launches": launches[1],
+           "k3_launches": sum(k3_want.values()),
            "k3_launches_by_variant": k3_variants,
            "profile": {"wall_ms": prof_wall * 1e3, "device_ms": busy,
                        "idle_share": 1.0 - busy / (prof_wall * 1e3),
@@ -1115,16 +1310,15 @@ def phase_prefill(card: str) -> dict:
                                for k, v in top]}}
     del model
     torch.cuda.empty_cache()
-    emit("zamba2_prefill", **out)
+    emit(phase, **out)
     return out
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  phase: dict) -> dict:
     """One kernel of the table line; ``variant`` names the one the main
-    path ran where the kernel has more than one; ``ms`` is on CUDA
-    events around back-to-back calls, ``device_ms`` on the device's
-    clock (the profiler's kernel time per call)."""
+    path ran where the kernel has more than one; ``ms`` and
+    ``device_ms`` as :func:`time_cuda` and :func:`device_ms` take them."""
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
@@ -1168,6 +1362,24 @@ def main() -> int:
     k3 = phase_k3(card)
     phase_lm_parity(card)
     pre = phase_prefill(card)
+    phase_lm_parity(card, "mamba2-2.7b", 4, (0, 4), "mamba2_parity")
+    pre_m = phase_prefill(card, "mamba2-2.7b", 0,
+                          {"tensor_core": 0, "simt": 64}, "mamba2_prefill")
+    # the entry's launches and times are the tensor-core variant's (the
+    # zamba2 prefill's); the SIMT variant's (mamba2's) stand beside them
+    k3_entry = kernel_entry("ssd_scan", "ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:66",
+                            pre["k3_launches"], k3)
+    simt = k3["simt_mamba2"]
+    k3_entry.update(
+        launches_by_path={"zamba2-7b prefill": pre["k3_launches_by_variant"],
+                          "mamba2-2.7b prefill":
+                              pre_m["k3_launches_by_variant"]},
+        simt_at_mamba2_shape={"launches": pre_m["k3_launches"]}
+        | {k: simt[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
+        | {"max_abs_err": simt["errors"]["float32"]["max_abs_err"]})
+    emit("profiles", sessions=PROFILE_LOG)
     print(json.dumps({"kernels": [
         kernel_entry("masked_select", "masked_select.cu",
                      "src/repro/kernels/select_move.py:44",
@@ -1175,9 +1387,7 @@ def main() -> int:
         kernel_entry("flash_attention", "flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:87",
                      pre["k2_launches"], k2),
-        kernel_entry("ssd_scan", "ssd_scan.cu",
-                     "src/repro/kernels/ssd_scan.py:66",
-                     pre["k3_launches"], k3)]}), flush=True)
+        k3_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

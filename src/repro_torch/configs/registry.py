@@ -3,9 +3,9 @@
 ``SHAPES`` are the assigned LM shapes: ``train_4k`` for the training
 step, ``prefill_32k`` for the prefill trunk, ``decode_32k`` /
 ``long_500k`` for one serve step against a seq_len-sized cache.  Of the
-ten architectures only ``zamba2-7b`` is ported so far; :func:`get_config`
-raises ``NotImplementedError`` for the others (ROADMAP.md queue 1,
-item 13).
+ten architectures ``zamba2-7b`` and ``mamba2-2.7b`` are ported so far;
+:func:`get_config` raises ``NotImplementedError`` for the others
+(ROADMAP.md queue 1, item 9(d)).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ ARCHS = {
 }
 
 #: architectures whose configuration and forward the port has
-PORTED = ("zamba2-7b",)
+PORTED = ("zamba2-7b", "mamba2-2.7b")
 
 
 @dataclass(frozen=True)
@@ -55,5 +55,5 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in PORTED:
         raise NotImplementedError(
             f"{arch} is not ported to repro_torch yet (ported: "
-            f"{', '.join(PORTED)}); see ROADMAP.md queue 1, item 13")
+            f"{', '.join(PORTED)}); see ROADMAP.md queue 1, item 9(d)")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}").CONFIG

@@ -13,7 +13,9 @@
 // operations (the scores and y_intra over the lower triangle, y_inter, the
 // state update) and moves about 120 MB (x and y in bf16, dt, and B and C
 // at group width).  At an H100 SXM's data-sheet rates (700 W: 3.35 TB/s,
-// 989 TFLOP/s bf16) the bytes bound it: 0.036 ms against 0.015 ms.
+// 989 TFLOP/s bf16) the bytes bound it: 0.036 ms against 0.015 ms.  At the
+// mamba2-2.7b prefill shape (80 heads, P 64, N 128, the rest the same) it
+// moves 87.3 MB: 0.026 ms.
 //
 // Two variants.  The wrapper (kernels/ssd_scan.py) picks one by dtype, P,
 // N and the chunk alone, never by a failure:
@@ -36,12 +38,16 @@
 //    swizzle) while a warp scan takes acum; W = B dt exp(total - acum) is
 //    written over the B tile's layout as bf16 hi and lo tiles.
 // 2. Warpgroup 0 takes S_c = x^T W (64 x 64, depth Q) on wgmma, both
-//    operands MN-major from shared memory; waits on the chunk's flag for
+//    operands MN-major from shared memory; waits on its head's counter for
 //    s_in[c], which chunk c - 1 published (0 for the first chunk); writes
 //    s_in[c + 1] = s_in[c] exp(total) + S_c (the reference's expression,
-//    in that order, no FMA contraction) to the workspace and publishes
-//    it (stores, a barrier, then one st.release of the flag: the CUTLASS
-//    semaphore's pattern); then s_in[c] as bf16 hi, lo tiles.
+//    in that order, no FMA contraction) to the next slot of the head's
+//    ring (Params::ring below says why two slots are enough) and
+//    publishes it
+//    (stores, a barrier, then one st.release of the counter: the CUTLASS
+//    semaphore's pattern); then s_in[c] as bf16 hi, lo tiles.  The ring
+//    and the counters are the whole workspace: 32 KB and 4 bytes per
+//    (batch, head), whatever T.
 // 3. Each warpgroup, for its rows t and each 64-key half at or below the
 //    diagonal: the scores C B^T (wgmma), times the decay and dt_u in
 //    registers, packed as the A fragment of y += S x (wgmma, A from
@@ -57,11 +63,10 @@
 // from a ticket it draws with one atomic as it starts, heads fastest.  So
 // chunk c - 1 of a head went to a block that had started before, and a
 // block waits only on such a predecessor, which waits only on its own.
-// The flags and the ticket counter are zeroed by the wrapper for every
-// call.  Every
-// wait (the TMA's mbarrier, a chunk's flag) traps after 4 s of wall
-// time, so a lost transaction or hand-off faults the launch instead of
-// hanging the card.
+// The counters and the ticket counter are zeroed by the wrapper for every
+// call.  Every wait (the TMA's mbarrier, a head's counter) traps after 4 s
+// of wall time, so a lost transaction or hand-off faults the launch
+// instead of hanging the card.
 //
 // Precision: x, B and C are bf16 and go to the tensor cores as they are;
 // the float32 operands (W, the decayed scores, s_in) go as two bf16 terms,
@@ -74,19 +79,24 @@
 // NaN.  exp is one ex2 of acum in log2 units.
 //
 // SIMT design: the TPU carries the (P, N) state in VMEM across a sequential
-// chunk axis of its grid.  Here one block owns one (batch, head) and loops
-// over the chunks itself, with the state in shared memory (16 KB at
-// P = N = 64) for the whole sequence.  Each chunk stages C and B
-// (transposed), x, dt and the cumsum in shared memory, and runs three
-// products as 64 x 64 output tiles, each thread a 4 x 4 sub-tile from
-// float4 reads: the decay-masked scores (lower triangle only), then y
-// (intra-chunk part plus the carried state's), then the state update.
-// The decay is selected, not multiplied, as above.  B and C
-// are read by group (head h reads group h / (H / G)) at the strides given,
-// so the 112-fold head repeat of the reference wrapper is never written.
-// At batch 1 it has only 112 blocks for 132 SMs, one chunk after another
-// in each (PERF.md has its time).  The kernels allocate nothing and never
-// synchronise; the C entry points return cudaGetLastError().
+// chunk axis of its grid.  Here one block owns one (batch, head) and up to
+// 64 columns of P (a second block takes P 65 .. 128), loops over the
+// chunks itself, and keeps its columns of the state in shared memory for
+// the whole sequence (32 KB at N 128).  Each chunk stages x, dt and the
+// cumsum, then C and B 32 state columns at a time: each such N tile adds
+// its part of the scores C B^T, adds C state^T to y's state term, and
+// then updates its own columns of the state, which no other tile reads.
+// y's intra-chunk part follows once the scores are whole.  Every product
+// is 64-wide output tiles of 4 x 4 (2 x 4 for the state) sub-tiles per
+// thread from float4 reads; y stays in registers across the N tiles.
+// Tiling N keeps shared memory at most 225,792 bytes for every chunk up
+// to 128, P and N multiples of 4 (N up to 256).  The decay is selected,
+// not multiplied, as above.  B and C are read by group (head h reads
+// group h / (H / G)) at the strides given, so the head repeat of the
+// reference wrapper is never written.  At batch 1 it has only 80 to 112
+// blocks for 132 SMs, one chunk after another in each (PERF.md has its
+// time).  The kernels allocate nothing and never synchronise; the C entry
+// points return cudaGetLastError().
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links -lcuda
 #include <cuda_bf16.h>
@@ -130,29 +140,52 @@ struct Params {
   long long sxb, sxt, sxh, sdb, sdt, sdh, sbb, sbt, sbg, scb, sct, scg;
 };
 
+constexpr int kPSlice = 64;  // columns of P one block owns (grid z: P / 64)
+constexpr int kNTile = 32;   // state columns staged at once
+constexpr int kTTiles = 2;   // 64-row tiles of y a thread owns: Q <= 128
+
+// shared memory of one block, in floats: one N tile's Ct, Bt and W, the
+// block's x columns, the scores, the block's columns of the state
+// (transposed), dt, acum and the w factor
 __host__ __device__ inline size_t smem_floats(int Q, int P, int N) {
-  const int sQ = Q + kPad, sP = P + kPad, sN = N + kPad;
-  const int sS = sQ > sN ? sQ : sN;
-  return static_cast<size_t>(N) * sQ * 2       // Ct, Bt
+  const int pt = P < kPSlice ? P : kPSlice, nt = N < kNTile ? N : kNTile;
+  const int sQ = Q + kPad, sP = pt + kPad, sN = nt + kPad;
+  return static_cast<size_t>(nt) * sQ * 2      // Ct, Bt
+         + static_cast<size_t>(Q) * sN         // W
          + static_cast<size_t>(Q) * sP         // X
-         + static_cast<size_t>(Q) * sS         // St, then W
+         + static_cast<size_t>(Q) * sQ         // St
          + static_cast<size_t>(N) * sP         // state, transposed
          + static_cast<size_t>(Q) * 3;         // dt, acum, w factor
 }
 
+// One block per (head, batch, 64 columns of P), looping over the chunks
+// with its columns of the state in shared memory.  Per chunk, for each
+// tile of kNTile state columns n:
+//   (a) the scores St[u][t] += C[t, tile]·B[u, tile] (u <= t), the last
+//       tile times exp(acum[t] - acum[u]) dt[u];
+//   (b) y's state term, inter[t][p] += C[t, tile]·state[p, tile], from
+//       the state entering the chunk;
+//   (c) after a barrier, the tile's columns of the state:
+//       state[p][n] <- state[p][n] exp(total) + sum_u x[u][p] W[u][n].
+// Then y = St x + exp(acum[t]) inter.  State columns are independent, so
+// (b) and (c) need only their own tile; the scores, summed over every
+// tile, wait for the last.  Each thread keeps its y rows in registers.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int Q = p.Q, P = p.P, N = p.N;
-  const int sQ = Q + kPad, sP = P + kPad, sN = N + kPad;
-  const int sS = sQ > sN ? sQ : sN;
-  float* Ct = smem;              // [N][sQ]  C[t][n] at Ct[n][t]
-  float* Bt = Ct + N * sQ;       // [N][sQ]  B[u][n] at Bt[n][u]
-  float* X = Bt + N * sQ;        // [Q][sP]
-  float* S = X + Q * sP;         // St[u][t] (stride sQ), then W[u][n] (sN)
-  float* St = S + Q * sS;        // state[p][n] at St[n][p], stride sP
+  const int Q = p.Q, N = p.N;
+  const int pb = blockIdx.z * kPSlice;
+  const int P = min(kPSlice, p.P - pb);  // this block's columns
+  const int NT = min(kNTile, N);
+  const int sQ = Q + kPad, sP = min(kPSlice, p.P) + kPad, sN = NT + kPad;
+  float* Ct = smem;              // [NT][sQ]  C[t][n0 + n] at Ct[n][t]
+  float* Bt = Ct + NT * sQ;      // [NT][sQ]  B[u][n0 + n] at Bt[n][u]
+  float* W = Bt + NT * sQ;       // [Q][sN]   B[u][n0 + n] dt[u] exp(total - acum[u])
+  float* X = W + Q * sN;         // [Q][sP]
+  float* S = X + Q * sP;         // St[u][t], stride sQ
+  float* St = S + Q * sQ;        // state[p][n] at St[n][p], stride sP
   float* dtv = St + N * sP;      // [Q]
   float* acum = dtv + Q;         // [Q]
   float* wfac = acum + Q;        // [Q]
@@ -163,24 +196,20 @@ ssd_scan_kernel(const Params p) {
   const int g = h / (p.H / p.G);
   const float A = p.A[h];
 
-  const T* x = static_cast<const T*>(p.x) + b * p.sxb + h * p.sxh;
+  const T* x = static_cast<const T*>(p.x) + b * p.sxb + h * p.sxh + pb;
   const float* dt = p.dt + b * p.sdb + h * p.sdh;
   const T* Bm = static_cast<const T*>(p.Bm) + b * p.sbb + g * p.sbg;
   const T* Cm = static_cast<const T*>(p.Cm) + b * p.scb + g * p.scg;
   T* y = static_cast<T*>(p.y) +
-         (static_cast<long long>(b) * p.T * p.H + h) * P;
-  const long long syt = static_cast<long long>(p.H) * P;
+         (static_cast<long long>(b) * p.T * p.H + h) * p.P + pb;
+  const long long syt = static_cast<long long>(p.H) * p.P;
+  const int p0 = tx * 4;  // this thread's columns of y and of the state
 
   for (int e = tid; e < N * sP; e += kThreads) St[e] = 0.f;
 
   for (int t0 = 0; t0 < p.T; t0 += Q) {
     __syncthreads();  // the previous chunk's readers are done
     for (int i = tid; i < Q; i += kThreads) dtv[i] = dt[(t0 + i) * p.sdt];
-    for (int e = tid; e < Q * N; e += kThreads) {
-      const int u = e / N, n = e - u * N;
-      Bt[n * sQ + u] = to_f(Bm[(t0 + u) * p.sbt + n]);
-      Ct[n * sQ + u] = to_f(Cm[(t0 + u) * p.sct + n]);
-    }
     for (int e = tid; e < Q * P; e += kThreads) {
       const int u = e / P, q = e - u * P;
       X[u * sP + q] = to_f(x[(t0 + u) * p.sxt + q]);
@@ -194,46 +223,121 @@ ssd_scan_kernel(const Params p) {
       }
     }
     __syncthreads();
+    const float total = acum[Q - 1];
+    const float chunk_decay = expf(total);
+    for (int i = tid; i < Q; i += kThreads)
+      wfac[i] = dtv[i] * expf(total - acum[i]);
 
-    // scores St[u][t] = (C[t]·B[u]) exp(acum[t] - acum[u]) dt[u], u <= t
-    for (int tm = 0; tm < Q; tm += kTile) {
-      for (int un = 0; un <= tm; un += kTile) {
-        const int t0l = tm + ty * 4, u0 = un + tx * 4;
-        // a sub-tile wholly above the diagonal is never read
-        if (t0l >= Q || u0 >= Q || u0 > t0l + 3) continue;
-        float acc[4][4] = {};
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-          unpack(*reinterpret_cast<const float4*>(&Ct[n * sQ + t0l]), cv);
-          unpack(*reinterpret_cast<const float4*>(&Bt[n * sQ + u0]), bv);
+    float inter[kTTiles][4][4] = {};
+    for (int n0 = 0; n0 < N; n0 += NT) {
+      const int nt = min(NT, N - n0);
+      const bool last = n0 + nt >= N;
+      __syncthreads();  // wfac written; the last tile's readers are done
+      for (int e = tid; e < Q * nt; e += kThreads) {
+        const int u = e / nt, n = e - u * nt;
+        const float bv = to_f(Bm[(t0 + u) * p.sbt + n0 + n]);
+        Bt[n * sQ + u] = bv;
+        W[u * sN + n] = bv * wfac[u];
+        Ct[n * sQ + u] = to_f(Cm[(t0 + u) * p.sct + n0 + n]);
+      }
+      __syncthreads();
+
+      // (a) this tile's part of the scores; every tile adds to the same
+      // elements of St, which only this thread touches until the barrier
+      // after the last tile
+      for (int tm = 0; tm < Q; tm += kTile) {
+        for (int un = 0; un <= tm; un += kTile) {
+          const int t0l = tm + ty * 4, u0 = un + tx * 4;
+          // a sub-tile wholly above the diagonal is never read
+          if (t0l >= Q || u0 >= Q || u0 > t0l + 3) continue;
+          float acc[4][4] = {};
+          for (int n = 0; n < nt; ++n) {
+            float cv[4], bv[4];
+            unpack(*reinterpret_cast<const float4*>(&Ct[n * sQ + t0l]), cv);
+            unpack(*reinterpret_cast<const float4*>(&Bt[n * sQ + u0]), bv);
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
+              for (int j = 0; j < 4; ++j)
+                acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int u = u0 + j;
+            float4* dst = reinterpret_cast<float4*>(&S[u * sQ + t0l]);
+            float out[4];
+            if (n0 > 0) {
+              unpack(*dst, out);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) out[i] = 0.f;
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int t = t0l + i;
+              out[i] += acc[i][j];
+              if (last)
+                out[i] = u <= t ? out[i] * expf(acum[t] - acum[u]) * dtv[u]
+                                : 0.f;
+            }
+            *dst = make_float4(out[0], out[1], out[2], out[3]);
+          }
+        }
+      }
+
+      // (b) y's state term over this tile, from the entering state
+      if (p0 < P) {
+#pragma unroll
+        for (int tt = 0; tt < kTTiles; ++tt) {
+          const int t0l = tt * kTile + ty * 4;
+          if (t0l >= Q) continue;
+          for (int n = 0; n < nt; ++n) {
+            float cv[4], hv[4];
+            unpack(*reinterpret_cast<const float4*>(&Ct[n * sQ + t0l]), cv);
+            unpack(*reinterpret_cast<const float4*>(&St[(n0 + n) * sP + p0]),
+                   hv);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                inter[tt][i][j] = fmaf(cv[i], hv[j], inter[tt][i][j]);
+          }
+        }
+      }
+      __syncthreads();  // the tile's entering state is read
+
+      // (c) the tile's state columns, two n by four p a thread
+      const int nl = ty * 2;
+      if (nl < nt && p0 < P) {
+        float acc[2][4] = {};
+        for (int u = 0; u < Q; ++u) {
+          const float2 wv = *reinterpret_cast<const float2*>(&W[u * sN + nl]);
+          float xv[4];
+          unpack(*reinterpret_cast<const float4*>(&X[u * sP + p0]), xv);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[0][j] = fmaf(wv.x, xv[j], acc[0][j]);
+            acc[1][j] = fmaf(wv.y, xv[j], acc[1][j]);
+          }
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int u = u0 + j;
-          float out[4];
+        for (int i = 0; i < 2; ++i) {
+          float* row = &St[(n0 + nl + i) * sP + p0];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int t = t0l + i;
-            out[i] = u <= t ? acc[i][j] * expf(acum[t] - acum[u]) * dtv[u]
-                            : 0.f;
-          }
-          *reinterpret_cast<float4*>(&S[u * sQ + t0l]) =
-              make_float4(out[0], out[1], out[2], out[3]);
+          for (int j = 0; j < 4; ++j)
+            row[j] = row[j] * chunk_decay + acc[i][j];
         }
       }
     }
-    __syncthreads();
+    __syncthreads();  // the scores are complete
 
-    // y[t][p] = sum_{u <= t} St[u][t] x[u][p] + exp(acum[t]) C[t]·state[p]
-    for (int tm = 0; tm < Q; tm += kTile) {
-      for (int pn = 0; pn < P; pn += kTile) {
-        const int t0l = tm + ty * 4, p0 = pn + tx * 4;
-        if (t0l >= Q || p0 >= P) continue;
-        float intra[4][4] = {}, inter[4][4] = {};
+    // y[t][p] = sum_{u <= t} St[u][t] x[u][p] + exp(acum[t]) inter[t][p]
+    if (p0 < P) {
+#pragma unroll
+      for (int tt = 0; tt < kTTiles; ++tt) {
+        const int t0l = tt * kTile + ty * 4;
+        if (t0l >= Q) continue;
+        float intra[4][4] = {};
         const int u_end = min(Q, t0l + 4);  // St[u][t] = 0 for u > t
         for (int u = 0; u < u_end; ++u) {
           float sv[4], xv[4];
@@ -245,16 +349,6 @@ ssd_scan_kernel(const Params p) {
             for (int j = 0; j < 4; ++j)
               intra[i][j] = fmaf(sv[i], xv[j], intra[i][j]);
         }
-        for (int n = 0; n < N; ++n) {
-          float cv[4], hv[4];
-          unpack(*reinterpret_cast<const float4*>(&Ct[n * sQ + t0l]), cv);
-          unpack(*reinterpret_cast<const float4*>(&St[n * sP + p0]), hv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              inter[i][j] = fmaf(cv[i], hv[j], inter[i][j]);
-        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int t = t0l + i;
@@ -262,43 +356,7 @@ ssd_scan_kernel(const Params p) {
           T* yrow = y + (t0 + t) * syt + p0;
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            yrow[j] = from_f<T>(intra[i][j] + inter[i][j] * decay);
-        }
-      }
-    }
-    __syncthreads();  // St and the old state are read; S is free
-
-    const float total = acum[Q - 1];
-    for (int i = tid; i < Q; i += kThreads)
-      wfac[i] = dtv[i] * expf(total - acum[i]);
-    __syncthreads();
-    for (int e = tid; e < Q * N; e += kThreads) {
-      const int u = e / N, n = e - u * N;
-      S[u * sN + n] = Bt[n * sQ + u] * wfac[u];  // W[u][n]
-    }
-    __syncthreads();
-
-    // state[p][n] <- state[p][n] exp(total) + sum_u x[u][p] W[u][n]
-    const float chunk_decay = expf(total);
-    for (int nm = 0; nm < N; nm += kTile) {
-      for (int pn = 0; pn < P; pn += kTile) {
-        const int n0 = nm + ty * 4, p0 = pn + tx * 4;
-        if (n0 >= N || p0 >= P) continue;
-        float acc[4][4] = {};
-        for (int u = 0; u < Q; ++u) {
-          float wv[4], xv[4];
-          unpack(*reinterpret_cast<const float4*>(&S[u * sN + n0]), wv);
-          unpack(*reinterpret_cast<const float4*>(&X[u * sP + p0]), xv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* row = &St[(n0 + i) * sP + p0];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) row[j] = row[j] * chunk_decay + acc[i][j];
+            yrow[j] = from_f<T>(intra[i][j] + inter[tt][i][j] * decay);
         }
       }
     }
@@ -312,7 +370,7 @@ int launch(const Params& p, cudaStream_t stream) {
       ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.H, p.B);
+  const dim3 grid(p.H, p.B, (p.P + kPSlice - 1) / kPSlice);
   ssd_scan_kernel<T><<<grid, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -329,12 +387,21 @@ constexpr int kDim = 64;                      // P and N: one TMA box
 constexpr int kStateTile = kDim * kRowBytes;  // one [64][64] bf16 tile
 constexpr int kStateElems = kDim * kDim;
 constexpr unsigned kFull = 0xffffffffu;
-
 struct Params {
   const float* dt;
   const float* A;
-  float* states;  // (B, H, nc, P, N) float32: s_in[c] for c >= 1
-  int* flags;     // (B, H, nc), zero at launch: s_in[c] published
+  // The state hand-off ring, (B, H, ring, P, N) float32; the wrapper
+  // chooses ring (kernels/ssd_scan.py::K3_RING, 2) and the entry refuses
+  // fewer than two.  The block of chunk c reads s_in[c] from slot
+  // c % ring and writes s_in[c + 1] to slot (c + 1) % ring.  Only
+  // warpgroup 0 reads a slot, into registers, and it does so before it
+  // writes or publishes anything.  So the slot that chunk c overwrites
+  // last held s_in[c + 1 - ring], whose one reader (chunk c + 1 - ring)
+  // finished loading it before it published the state that chunk c
+  // acquired: two slots are enough.  A slot is never re-read.
+  float* states;
+  int ring;
+  int* flags;     // (B, H), zero at launch: s_in[c] published at >= c
   int* tickets;   // one counter, zero at launch: blocks draw (h, c, b)
   void* y;        // (B, T, H, P) bf16, contiguous
   int T, H, G, nc;
@@ -449,10 +516,12 @@ __device__ __forceinline__ float chunk_cumsum(const Params& p, int b, int h,
   return v + before;
 }
 
-// release / acquire of a chunk's flag at device scope (the CUTLASS
-// semaphore's pattern: the block's stores, a barrier, then one release)
-__device__ __forceinline__ void flag_release(int* flag) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(flag), "r"(1)
+// release / acquire of a (batch, head)'s counter at device scope (the
+// CUTLASS semaphore's pattern: the block's stores, a barrier, then one
+// release); the counter counts the states published, so it only grows
+// and a value cannot be mistaken for an earlier round's
+__device__ __forceinline__ void flag_release(int* flag, int value) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(flag), "r"(value)
                : "memory");
 }
 __device__ __forceinline__ int flag_acquire(const int* flag) {
@@ -463,11 +532,11 @@ __device__ __forceinline__ int flag_acquire(const int* flag) {
                : "memory");
   return v;
 }
-// until the flag is set; traps after kWaitLimitNs
-__device__ __forceinline__ void flag_wait(const int* flag) {
-  if (flag_acquire(flag)) return;
+// until the counter reaches value; traps after kWaitLimitNs
+__device__ __forceinline__ void flag_wait(const int* flag, int value) {
+  if (flag_acquire(flag) >= value) return;
   const unsigned long long t0 = global_ns();
-  while (!flag_acquire(flag))
+  while (flag_acquire(flag) < value)
     if (global_ns() - t0 > kWaitLimitNs) __trap();
 }
 // bar.sync over the first warpgroup alone (barrier 0 is __syncthreads)
@@ -479,8 +548,8 @@ __device__ __forceinline__ void wg0_sync() {
 // starts, heads fastest, so that a chunk's predecessor has started
 // before it; one warpgroup per 64 rows t.
 //   1. all threads: acum, W = B dt exp(total - acum) (bf16 hi, lo);
-//   2. warpgroup 0: S_c = x^T W; waits for s_in[c] (the chain's flag,
-//      published by chunk c - 1), publishes s_in[c + 1] = s_in[c]
+//   2. warpgroup 0: S_c = x^T W; waits for s_in[c] (the head's counter
+//      at c, published by chunk c - 1), publishes s_in[c + 1] = s_in[c]
 //      exp(total) + S_c (the reference's expression, in that order, no
 //      FMA contraction) and writes s_in[c] as bf16 hi, lo tiles; then
 //      its own rows' y_intra;
@@ -589,15 +658,16 @@ ssd_scan_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
     // d[4 jn + e]: p = ra or rb (e >> 1), n = 8 jn + 2 t4 + (e & 1).
     // s_in[c] (0 for the first chunk) in the same layout, all loads in
     // flight at once; s_in[c + 1] = s_in[c] exp(total) + S_c to the
-    // workspace, then the flag publishes it; only then s_in[c] as bf16 hi,
+    // ring, then the counter publishes it; only then s_in[c] as bf16 hi,
     // lo tiles [p][n] for C s_in^T (K-major, 128-byte swizzle: the pair
     // (n, n + 1) in chunk jn ^ (p & 7) of row p), so that the hand-off
     // waits for nothing else and the packed pairs are never live with d
     float v[32];
     if (c > 0) {
-      if (tid == 0) flag_wait(p.flags + bh * p.nc + c);
+      if (tid == 0) flag_wait(p.flags + bh, c);
       wg0_sync();
-      const float* src = p.states + (bh * p.nc + c) * kStateElems;
+      const float* src =
+          p.states + (bh * p.ring + c % p.ring) * kStateElems;
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
         const int row = (i & 2) ? rb : ra;
@@ -612,7 +682,8 @@ ssd_scan_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
     }
     if (c + 1 < p.nc) {
       const float decay = expf(total);
-      float* dst = p.states + (bh * p.nc + c + 1) * kStateElems;
+      float* dst =
+          p.states + (bh * p.ring + (c + 1) % p.ring) * kStateElems;
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
         const int row = (i & 2) ? rb : ra;
@@ -622,7 +693,7 @@ ssd_scan_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
                            __fadd_rn(__fmul_rn(v[i + 1], decay), d[i + 1])));
       }
       wg0_sync();
-      if (tid == 0) flag_release(p.flags + bh * p.nc + c + 1);
+      if (tid == 0) flag_release(p.flags + bh, c + 1);
     }
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
@@ -759,8 +830,8 @@ int launch(const CUtensorMap& mx, const CUtensorMap& mb,
 
 extern "C" {
 
-// Dynamic shared memory, in bytes, that a launch with these sizes needs;
-// the wrapper refuses sizes above the card's per-block limit.
+// Dynamic shared memory, in bytes, that a SIMT launch with these sizes
+// needs; the wrapper refuses a call that needs more than a block has.
 long long ssd_scan_smem_bytes(int Q, int P, int N) {
   return static_cast<long long>(smem_floats(Q, P, N) * sizeof(float));
 }
@@ -768,7 +839,8 @@ long long ssd_scan_smem_bytes(int Q, int P, int N) {
 // dtype: 0 float32, 1 bfloat16 (x, B, C and y); dt and A are float32.
 // x (B, T, H, P), dt (B, T, H), B / C (B, T, G, N) at the given strides
 // with unit stride over the last axis; A (H,) contiguous; y (B, T, H, P)
-// contiguous.  Q divides T; Q, P and N are multiples of 4.
+// contiguous.  Q divides T and is at most 128; Q, P and N are multiples
+// of 4.
 int ssd_scan_fwd(int dtype, const void* x, const void* dt, const void* A,
                  const void* Bm, const void* Cm, void* y, int B, int T, int H,
                  int G, int P, int N, int Q, long long sxb, long long sxt,
@@ -776,6 +848,8 @@ int ssd_scan_fwd(int dtype, const void* x, const void* dt, const void* A,
                  long long sbb, long long sbt, long long sbg, long long scb,
                  long long sct, long long scg, void* stream) {
   if (B <= 0 || T <= 0) return 0;
+  if (Q > kTTiles * kTile || T % Q || Q % 4 || P % 4 || N % 4 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params p{x, static_cast<const float*>(dt),
                  static_cast<const float*>(A), Bm, Cm, y, B, T, H, G, P, N,
                  Q, sxb, sxt, sxh, sdb, sdt, sdh, sbb, sbt, sbg, scb, sct,
@@ -790,16 +864,16 @@ int ssd_scan_fwd(int dtype, const void* x, const void* dt, const void* A,
 // dividing T; H a multiple of G; bases and (B, T, head or group) strides of
 // x, B and C positive multiples of 16 bytes (the wrapper checks all of it
 // first).  dt (B, T, H) float32 at the given strides, A (H,) contiguous,
-// y (B, T, H, P) contiguous; states (B, H, T / Q, P, N) float32 and flags
-// (B, H, T / Q) int32 workspaces, the flags followed by one more int32,
-// the ticket counter, all zero.  Returns
-// cudaErrorInvalidValue for a
+// y (B, T, H, P) contiguous; states (B, H, ring, P, N) float32 (the
+// ring, ring >= 2) and flags (B, H) int32 (one counter per head)
+// workspaces, the flags followed by one more int32, the ticket counter,
+// the flags and the ticket zero.  Returns cudaErrorInvalidValue for a
 // call outside that rule and cudaErrorNotSupported if a tensor map cannot
 // be encoded.
 int ssd_scan_fwd_tc(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, void* y, void* states,
-                    void* flags, int B, int T, int H, int G, int P, int N,
-                    int Q, long long sxb, long long sxt, long long sxh,
+                    int ring, void* flags, int B, int T, int H, int G, int P,
+                    int N, int Q, long long sxb, long long sxt, long long sxh,
                     long long sdb, long long sdt, long long sdh,
                     long long sbb, long long sbt, long long sbg,
                     long long scb, long long sct, long long scg,
@@ -807,7 +881,7 @@ int ssd_scan_fwd_tc(const void* x, const void* dt, const void* A,
   if (B <= 0 || T <= 0) return 0;
   const long long blocks = static_cast<long long>(B) * H * (T / Q);
   if (P != tc::kDim || N != tc::kDim || (Q != 64 && Q != 128) || T % Q ||
-      T / Q > 65535 || G < 1 || H % G || blocks >= (1LL << 31))
+      T / Q > 65535 || G < 1 || H % G || blocks >= (1LL << 31) || ring < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mx, mb, mc;
   if (!tc::encode(&mx, x, tc::kDim, H, T, B, sxh, sxt, sxb, Q) ||
@@ -816,9 +890,10 @@ int ssd_scan_fwd_tc(const void* x, const void* dt, const void* A,
     return static_cast<int>(cudaErrorNotSupported);
   const tc::Params p{static_cast<const float*>(dt),
                      static_cast<const float*>(A),
-                     static_cast<float*>(states),
+                     static_cast<float*>(states), ring,
                      static_cast<int*>(flags),
-                     static_cast<int*>(flags) + blocks,
+                     static_cast<int*>(flags) +
+                         static_cast<long long>(B) * H,
                      y, T, H, G, T / Q, sdb, sdt, sdh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return Q == 128 ? tc::launch<128>(mx, mb, mc, p, B, s)

@@ -9,13 +9,18 @@ Two variants, chosen by :func:`route` from the dtype, P, N and the chunk
 alone:
 
 * ``"tensor_core"`` (``ssd_scan_fwd_tc``: TMA, wgmma, one block per
-  chunk and head, the state handed on from chunk to chunk) for bf16 x, B
-  and C with P and N in :data:`TC_DIMS` and the chunk in
-  :data:`TC_CHUNKS`.  TMA reads x, B and C, so their data pointers and
-  (B, T, head or group) strides must be positive multiples of 16 bytes:
-  :func:`.tma.check_tma_layout`, K2's rule too, raises on any other
-  layout, and such a call never goes to the other variant;
-* ``"simt"`` (``ssd_scan_fwd``) for float32 and every other shape.
+  chunk and head, the state handed on from chunk to chunk through a ring
+  of :data:`K3_RING` slots per (batch, head)) for bf16 x, B and C with P
+  and N in :data:`TC_DIMS` and the chunk in :data:`TC_CHUNKS`.  TMA reads
+  x, B and C, so their data pointers and (B, T, head or group) strides
+  must be positive multiples of 16 bytes: :func:`.tma.check_tma_layout`,
+  K2's rule too, raises on any other layout, and such a call never goes
+  to the other variant.  Its workspace, :func:`workspace_bytes`, does not
+  grow with T;
+* ``"simt"`` (``ssd_scan_fwd``) for float32 and every other shape, with
+  N tiled inside the block: its shared memory (``ssd_scan_smem_bytes`` of
+  the library) fits every chunk up to 128 with P and N multiples of 4 and
+  N up to 256.
 
 Each variant counts its own launches (:func:`launch_counts`).
 """
@@ -37,6 +42,10 @@ MAX_CHUNK = 128
 TC_DIMS = (64,)
 #: chunks of the tensor-core kernel (one or two 64-row warpgroups)
 TC_CHUNKS = (64, 128)
+#: slots of the tensor-core kernel's state hand-off ring per (batch, head),
+#: passed to the kernel (``Params::ring`` in ``csrc/ssd_scan.cu`` argues
+#: why two are enough)
+K3_RING = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("tensor_core", "simt")
 
@@ -71,6 +80,16 @@ def route(dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
     return "simt"
 
 
+def workspace_bytes(B: int, H: int, T: int, P: int, N: int, Q: int) -> int:
+    """Bytes of the workspace one tensor-core call allocates: the
+    float32 (P, N) state ring, :data:`K3_RING` slots per (batch, head),
+    then one int32 counter per (batch, head) and the ticket counter.  T
+    and the chunk Q do not enter: the ring holds the chunks in flight,
+    not the sequence."""
+    del T, Q
+    return B * H * K3_RING * P * N * 4 + (B * H + 1) * 4
+
+
 def _library():
     from .build import load
     lib = load("ssd_scan")
@@ -79,7 +98,8 @@ def _library():
         lib.ssd_scan_fwd.argtypes = [i, p, p, p, p, p, p,
                                      i, i, i, i, i, i, i] + [ll] * 12 + [p]
         lib.ssd_scan_fwd.restype = ctypes.c_int
-        lib.ssd_scan_fwd_tc.argtypes = [p] * 8 + [i] * 7 + [ll] * 12 + [p]
+        lib.ssd_scan_fwd_tc.argtypes = [p] * 7 + [i, p] + [i] * 7 \
+            + [ll] * 12 + [p]
         lib.ssd_scan_fwd_tc.restype = ctypes.c_int
         lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
         lib.ssd_scan_smem_bytes.restype = ll
@@ -150,17 +170,17 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if variant == "tensor_core":
-            # the state entering each chunk, handed from chunk to chunk;
-            # the (B, H, T / Q) flags that publish it and, after them, the
-            # counter the blocks draw their tickets from (zero at launch)
-            states = torch.empty((B, H, T // Q, P, N), dtype=torch.float32,
-                                 device=x.device)
-            flags = torch.zeros(B * H * (T // Q) + 1, dtype=torch.int32,
-                                device=x.device)
+            # the state ring; after it the (B, H) counters that publish
+            # its slots and the counter the blocks draw their tickets
+            # from, both zero at launch
+            ws = torch.empty(workspace_bytes(B, H, T, P, N, Q),
+                             dtype=torch.uint8, device=x.device)
+            ring = B * H * K3_RING * P * N * 4
+            ws[ring:].zero_()
             rc = lib.ssd_scan_fwd_tc(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
-                flags.data_ptr(), B, T, H, G, P, N, Q, *strides, stream)
+                Cm.data_ptr(), y.data_ptr(), ws.data_ptr(), K3_RING,
+                ws.data_ptr() + ring, B, T, H, G, P, N, Q, *strides, stream)
         else:
             rc = lib.ssd_scan_fwd(
                 _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),

@@ -3,9 +3,9 @@
 Ported families: the SSM+shared-attention hybrid (zamba2), the
 attention-free SSD stack (mamba2) and the dense decoder without MoE.
 MoE, encoder–decoder and non-token inputs raise ``NotImplementedError``
-(ROADMAP.md queue 1, item 13).  An :class:`LM` owns one module per layer
-— an :class:`SSDBlock` or an :class:`AttnMLPBlock` — and, for the hybrid,
-one shared :class:`AttnMLPBlock` applied before every
+(ROADMAP.md queue 1, item 9(d)).  An :class:`LM` owns one module per
+layer — an :class:`SSDBlock` or an :class:`AttnMLPBlock` — and, for the
+hybrid, one shared :class:`AttnMLPBlock` applied before every
 ``shared_attn_every``-th layer.  Parameters are float32, named as the
 reference's parameter tree (``layers.3.ssm.in_z`` is the reference's
 ``layers/ssm/in_z[3]``), and cast to ``cfg.dtype`` at each use.
@@ -42,7 +42,7 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (experts {cfg.n_experts}, "
             f"encoder layers {cfg.n_enc_layers}, input {cfg.input_mode!r}) "
-            f"is not ported yet; see ROADMAP.md queue 1, item 13")
+            f"is not ported yet; see ROADMAP.md queue 1, item 9(d)")
 
 
 # ---------------------------------------------------------------------------
@@ -211,8 +211,11 @@ def _init_leaf(param: torch.Tensor, name: str, cfg: ModelConfig,
 def init_params(model: LM, seed: int = 0) -> LM:
     """Fill ``model``'s parameters in place from a ``torch.Generator`` on
     the model's device seeded with ``seed``.  The values follow the
-    reference's distributions, not its random bits."""
+    reference's distributions, not its random bits.  On the meta device,
+    which holds shapes and no values, there is nothing to fill."""
     device = model.embed.device
+    if device.type == "meta":
+        return model
     gen = torch.Generator(device=device).manual_seed(seed)
     for dotted, param in model.named_parameters():
         _init_leaf(param, dotted.rsplit(".", 1)[-1], model.cfg, gen)

@@ -29,8 +29,9 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd, route
 from repro_torch.kernels.ref import (flash_attention_plain,
                                      flash_attention_ref, ssd_chunked,
                                      ssd_scan_plain, ssd_scan_ref)
+from repro_torch.kernels.ssd_scan import (K3_RING, ssd_scan_fwd,
+                                          workspace_bytes)
 from repro_torch.kernels.ssd_scan import route as k3_route
-from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 from repro_torch.kernels.tma import check_tma_layout
 
 TOL = {np.float32: dict(rtol=1e-5, atol=1e-5),
@@ -213,17 +214,25 @@ def _ssd_inputs(rng, B, T, H, G, P, N, dtype, ramp=False):
     (32, 16, 8, 16, np.float32),
     (16, 8, 8, 16, np.float32),     # single chunk
     (32, 8, 8, 8, "bfloat16"),
+    (256, 64, 128, 128, np.float32),    # mamba2-2.7b's P, N and chunk
 ])
 def test_ssd_plain_matches_reference(T, P, N, chunk, dtype):
     """Model layout with groups (H 4, G 2): the port's dispatch on the
     CPU against the JAX kernel in interpret mode, and the (BH, T, ·)
-    plain version against the JAX one, final state included."""
+    plain version against the JAX one, final state included.  At
+    mamba2's widths each score sums 128 products and each y 128 keys, 64
+    times the depth of the small cases, and the two chunk schedules
+    differ by up to 1.7e-5 on outputs near 2: that case is held at 1e-4,
+    the tolerance of the float32 kernel on the card."""
     ins = _ssd_inputs(np.random.default_rng(3), 2, T, 4, 2, P, N, dtype)
     (xj, xt), (dj, dtt), (aj, at), (bj, bt), (cj, ct) = ins
     got = ops.ssd_scan(xt, dtt, at, bt, ct, chunk=chunk)
     assert got.dtype == xt.dtype and got.shape == xt.shape
     ker = jax_ssd(xj, dj, aj, bj, cj, chunk=chunk, interpret=True)
-    np.testing.assert_allclose(_np(got), _np(ker), **TOL[dtype])
+    deep = dtype == np.float32 and chunk * N > 1024
+    np.testing.assert_allclose(_np(got), _np(ker),
+                               **(dict(rtol=1e-4, atol=1e-4) if deep
+                                  else TOL[dtype]))
 
     BH = 8
     flat = dict(x=xt.float().transpose(1, 2).reshape(BH, T, P),
@@ -262,17 +271,19 @@ def test_ssd_wrapper_refuses_cpu_tensors():
         ssd_scan_fwd(*ins, chunk=16)
 
 
-@pytest.mark.parametrize("T,chunk,dtype", [
-    (64, 16, np.float32),           # 4 chunks
-    (128, 16, np.float32),          # 8 chunks
-    (128, 32, "bfloat16"),          # 4 chunks
+@pytest.mark.parametrize("T,chunk,dtype,P,N", [
+    pytest.param(64, 16, np.float32, 16, 8, id="64-16-float32"),  # 4 chunks
+    pytest.param(128, 16, np.float32, 16, 8, id="128-16-float32"),
+    pytest.param(128, 32, "bfloat16", 16, 8, id="128-32-bfloat16"),
+    # mamba2-2.7b's P, N and chunk over two chunks
+    pytest.param(256, 128, np.float32, 64, 128, id="256-128-float32-N128"),
 ])
-def test_ssd_chunked_matches_kernel_on_ramps(T, chunk, dtype):
+def test_ssd_chunked_matches_kernel_on_ramps(T, chunk, dtype, P, N):
     """The port's plain chunk loop against the JAX kernel in interpret
     mode on the model's dt and A ramps, groups included (H 4, G 2): the
     carried state is not negligible there (with the suite's draws it
     decays to about e^-50 per chunk of 128 and hides a dropped state)."""
-    ins = _ssd_inputs(np.random.default_rng(6), 2, T, 4, 2, 16, 8, dtype,
+    ins = _ssd_inputs(np.random.default_rng(6), 2, T, 4, 2, P, N, dtype,
                       ramp=True)
     (xj, xt), (dj, dtt), (aj, at), (bj, bt), (cj, ct) = ins
     y, state = ssd_chunked(xt, dtt, at, bt, ct, chunk)
@@ -303,3 +314,18 @@ def test_ssd_chunked_matches_kernel_on_ramps(T, chunk, dtype):
 def test_ssd_route_by_dtype_and_widths(dtype, P, N, chunk, variant):
     """K3's variant is a function of the dtype, P, N and the chunk alone."""
     assert k3_route(dtype, P, N, chunk) == variant
+
+
+def test_ssd_workspace_does_not_grow_with_t():
+    """The tensor-core call's workspace is the hand-off ring (K3_RING
+    float32 (P, N) slots per (batch, head)) and one counter per (batch,
+    head) plus the ticket: the same at T 4,096 and 32,768, 3.7 MB at the
+    zamba2 cell (B 1, H 112) and at most 128 MB at the registry's
+    prefill_32k (B 32), where one slot per chunk took 15.0 GB."""
+    for B, H in ((1, 112), (32, 112), (2, 4)):
+        ring = B * H * K3_RING * 64 * 64 * 4 + (B * H + 1) * 4
+        for T in (4096, 32768):
+            assert workspace_bytes(B, H, T, 64, 64, 128) == ring
+    assert K3_RING == 2
+    assert workspace_bytes(1, 112, 4096, 64, 64, 128) == 3_670_468
+    assert workspace_bytes(32, 112, 32768, 64, 64, 128) <= 128 * 2 ** 20

@@ -16,7 +16,10 @@ at least sqrt(128 / 4096) = 0.18), and, at a reduced prefill shape,
 within twice the error of ``scaled_dot_product_attention``.  K3's
 tensor-core variant (bf16, P = N = 64) is held the same way to the
 float32 plain version, each (token, head) row within 1e-2, and within
-4 x the SIMT variant's error on the same inputs."""
+4 x the SIMT variant's error on the same inputs.  The SIMT K3 at state
+widths 128 and 256 (mamba2-2.7b's N and the widest the block fits) is
+held to the float32 plain version at 1e-4 in float32 and, in bf16, per
+row at 1e-2."""
 
 import numpy as np
 import pytest
@@ -197,6 +200,7 @@ def _xbc_views(card, T, H, dtype, pad=0, ramp=True):
     (64, 16, 16, 64, 4, torch.float32),
     (256, 64, 64, 128, 1, torch.bfloat16),
     (256, 64, 64, 32, 1, torch.bfloat16),       # bf16 on the SIMT variant
+    (200, 100, 36, 100, 2, torch.float32),      # P over two blocks, ragged
 ])
 def test_k3_matches_plain(card, T, P, N, chunk, G, dtype):
     ins = _ssd_inputs(card, 2, T, 4, G, P, N, dtype)
@@ -268,6 +272,52 @@ def test_k3_misaligned_bf16_raises(card):
         with pytest.raises(ValueError, match="16 bytes"):
             k3.ssd_scan_fwd(*bad)
     assert k3.launch_count() == 0
+
+
+@pytest.mark.parametrize("N", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_simt_wide_state_matches_plain(card, N, dtype):
+    """P 64, chunk 128 (two chunks of T 256), H 8 on the model's ramps:
+    the SIMT variant, which tiles N inside its block, against the float32
+    plain version of the same inputs."""
+    ins = _ssd_inputs(card, 1, 256, 8, 1, 64, N, dtype, seed=7, ramp=True)
+    k3.reset_launch_count()
+    got = k3.ssd_scan_fwd(*ins, chunk=128)
+    assert k3.launch_counts() == {"tensor_core": 0, "simt": 1}
+    want = ssd_scan_plain(*(t.float() for t in ins))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **_tol(dtype))
+    else:
+        assert _errors(got, want)[1] <= ROW_REL_TOL
+
+
+def test_k3_tensor_core_reuses_ring_slots(card):
+    """32 chunks per head (T 4096, H 4, G 1) on the ramps: each slot of
+    the two-slot hand-off ring is written 16 times; every row within 1e-2
+    of the float32 plain version."""
+    ins = _ssd_inputs(card, 1, 4096, 4, 1, 64, 64, torch.bfloat16, seed=8,
+                      ramp=True)
+    k3.reset_launch_count()
+    got = k3.ssd_scan_fwd(*ins, chunk=128)
+    assert k3.launch_counts() == {"tensor_core": 1, "simt": 0}
+    want = ssd_scan_plain(*(t.float() for t in ins))
+    torch.testing.assert_close(got.float(), want, **_tol(torch.bfloat16))
+    assert _errors(got, want)[1] <= ROW_REL_TOL
+
+
+def test_k3_simt_fits_every_supported_width(card):
+    """The SIMT kernel tiles N (and P beyond 64) inside its block, so its
+    shared memory, as the library reports it, fits one block for every
+    chunk up to 128 with P in 16 .. 128 and N in 16 .. 256, multiples of 4
+    — mamba2-2.7b's (128, 64, 128) among them, which needed 273,920 bytes
+    when the block held all of N."""
+    lib = k3._library()
+    need = {(Q, P, N): lib.ssd_scan_smem_bytes(Q, P, N)
+            for Q in range(4, k3.MAX_CHUNK + 1, 4)
+            for P in range(16, 129, 4) for N in range(16, 257, 4)}
+    assert max(need.values()) <= k3.MAX_SMEM_BYTES
+    assert need[(128, 64, 128)] == 190_976
+    assert max(need.values()) == need[(128, 128, 256)] == 225_792
 
 
 def test_k3_float32_takes_simt(card):

@@ -64,10 +64,28 @@ def _ref_tree(ref_cfg, seed=0):
 def test_zamba2_config_equals_reference():
     assert dataclasses.asdict(get_config("zamba2-7b")) \
         == dataclasses.asdict(ref_get_config("zamba2-7b"))
-    assert set(ARCHS) == set(REF_ARCHS) and PORTED == ("zamba2-7b",)
+    assert set(ARCHS) == set(REF_ARCHS) \
+        and PORTED == ("zamba2-7b", "mamba2-2.7b")
 
 
-@pytest.mark.parametrize("arch", sorted(set(REF_ARCHS) - {"zamba2-7b"}))
+def test_mamba2_config_equals_reference():
+    """The port's own mamba2-2.7b entry equals the reference's field by
+    field, and its model (built on the meta device: shapes, no values)
+    holds 2,702,579,200 float32 parameters, 10.8 GB: 64 SSD layers of 80
+    heads (P 64, N 128, G 1) and the tied 50,280-row embedding."""
+    port, ref = get_config("mamba2-2.7b"), ref_get_config("mamba2-2.7b")
+    for field in dataclasses.fields(ref):
+        assert getattr(port, field.name) == getattr(ref, field.name), \
+            field.name
+    assert (port.n_layers, port.d_model, port.ssm_nheads, port.ssm_headdim,
+            port.ssm_state, port.ssm_ngroups, port.vocab_size) \
+        == (64, 2560, 80, 64, 128, 1, 50280) and port.tie_embeddings
+    model = build_model(port, device="meta")
+    assert sum(p.numel() for p in model.parameters()) == 2_702_579_200
+    assert model.unembed is None and model.shared is None
+
+
+@pytest.mark.parametrize("arch", sorted(set(REF_ARCHS) - set(PORTED)))
 def test_unported_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
