@@ -8,15 +8,25 @@ Builds every CUDA kernel of the port (K1, K2, K3) from
 phases, one JSON line each, and exits non-zero if any fails:
 
 0. environment: the card's name and power limit (``nvidia-smi``), the
-   torch and CUDA versions, the kernel build time; ``cuobjdump -sass`` of
-   K2's and of K3's library must show ``HGMMA`` (the tensor-core kernels
-   are on the tensor cores), and the registers, stack and spills of each
-   tensor-core kernel from the ``-Xptxas -v`` report (K3's with no
-   spills);
-1. kernel K1 (``masked_select``) against its plain PyTorch version on the
-   card, bitwise, over shapes, dtypes, densities, a tie-break row and
-   all-invalid rows; kernel, plain, library-call and bound times at the
-   cluster-B step shape, on CUDA events and on the device's clock;
+   torch and CUDA versions, the kernel build time; K1's fused kernel
+   ``select_rows_kernel`` keeps float64 rounding: its PTX (``nvcc -ptx``)
+   has no float64 ``fma`` and no add, subtract or multiply without
+   ``.rn``, and every DFMA of its SASS belongs to one of its divisions;
+   ``cuobjdump -sass`` of K2's and of K3's library must show ``HGMMA``
+   (the tensor-core kernels are on the tensor cores), and the registers,
+   stack and spills of each tensor-core kernel from the ``-Xptxas -v``
+   report (K3's with no spills);
+1. kernel K1: the fused ``select_rows`` against its plain PyTorch
+   version on the card, bitwise (``any``, ``dst``, ``cand_src``), on the
+   planner carries of ``tests/_select_rows_carries.py`` (three paper
+   clusters, source bounds on and off, parked sources, the knife's edge
+   of the variance test on each side) and on cluster B's first step,
+   staged and from device memory; its kernel, plain and bound times
+   there (the bound counted from that carry's data); then the standalone
+   reduction ``masked_select`` against its plain version, bitwise, over
+   shapes, dtypes, densities, a tie-break row and all-invalid rows, with
+   kernel, plain, library-call and bound times at the cluster-B step
+   shape;
 2. bit-identity on the card: ``equilibrium_batch`` on CUDA against the
    port's host ``equilibrium_faithful`` on four small paper clusters,
    source bounds on and off, chunk 1 and 64, plus a row-capacity
@@ -25,8 +35,10 @@ phases, one JSON line each, and exits non-zero if any fails:
    58,961 shards) to convergence on the card, held to the committed
    ``BENCH_planner.json`` row ``planner.tail.B1x.batch`` (moves, the
    sources-tried histogram, bound hits, pruned sources), one host sync
-   per chunk, K1 launched at least once per move; the first 200 moves
-   held to the port's host faithful planner; a profiled first chunk;
+   per chunk, K1's ``select_rows`` launched exactly once a step and the
+   standalone reduction never; the first 200 moves held to the port's
+   host faithful planner; a profiled first chunk (device operations a
+   step, busy seconds, idle share, K1's device time);
    then the same for ``cluster_b(scale=2)`` against
    ``planner.tail.B2x.batch`` (1,385 moves);
 4. no hidden host sync: one chunk of cluster A under
@@ -73,9 +85,10 @@ phases, one JSON line each, and exits non-zero if any fails:
     finite (1, 50280) logits, K3 launched 64 times, all SIMT, K2 never;
     seconds, tokens/s, peak memory and the profiled device-time shares of
     K3 (all of it the SIMT kernel) and the rest, as in phase 8;
-11. the kernel table line (K3 once: the tensor-core variant's launches
-    and times, and the SIMT variant's at mamba2's shape beside them); the
-    last line names the device.
+11. the kernel table line (K1 once: ``select_rows``'s launches and
+    times, and the standalone reduction's beside them; K3 once: the
+    tensor-core variant's launches and times, and the SIMT variant's at
+    mamba2's shape beside them); the last line names the device.
 
 Kernel times come in two forms: ``ms``, CUDA events around calls the
 host issues back to back, and ``device_ms``, CUDA events around calls
@@ -88,7 +101,9 @@ each profile took are printed before the kernel table line.
 ``--plan-only`` runs phases 0 and 3 (scale 1) alone and prints no result
 line: the way to time two trees in turns within one run on one card.
 
-It imports only ``repro_torch``, torch, NumPy and the standard library.
+It imports only ``repro_torch``, the tests' planner carries
+(``tests/_select_rows_carries.py``, which import only ``repro_torch``),
+torch, NumPy and the standard library.
 """
 
 from __future__ import annotations
@@ -119,6 +134,8 @@ SLEEP_CYCLES = 200_000_000
 #: lost launch records (:func:`profiled`), and each measurement's count
 PROFILE_TRIES = 3
 PROFILE_LOG: list[dict] = []
+#: K1's fused kernel as the profiler names it
+K1_KERNEL = "select_rows_kernel"
 #: the committed reference records of cluster B's full convergence, by
 #: scale
 BENCH_ROWS = {1: "planner.tail.B1x.batch", 2: "planner.tail.B2x.batch"}
@@ -235,6 +252,21 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds to issue one call of ``fn``, timed on the host's
+    clock while a sleep kernel holds the stream, so no call waits on the
+    device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
 # ---------------------------------------------------------------------------
 # phase 0
 
@@ -249,6 +281,7 @@ def phase_env() -> dict:
     print(card, flush=True)
     from repro_torch.kernels import build
     t0 = time.perf_counter()
+    ptx = k1_ptx_start(build)
     reports = build.build()
     build_s = time.perf_counter() - t0
     for name, log in reports.items():
@@ -257,7 +290,8 @@ def phase_env() -> dict:
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "python": sys.version.split()[0],
            "kernels_built": sorted(reports), "build_s": build_s,
-           **k2_instructions(build), **k3_instructions(build)}
+           **k1_instructions(build, ptx), **k2_instructions(build),
+           **k3_instructions(build)}
     emit("env", **env)
     return env
 
@@ -281,19 +315,131 @@ def ptxas_kernels(log: str) -> dict:
     return out
 
 
-def sass_hgmma(build, name: str, kernel: str) -> int:
-    """HGMMA (wgmma) instructions in ``cuobjdump -sass`` of
-    ``csrc/<name>.cu``'s library; fails at none."""
+def sass_of(build, name: str) -> str:
+    """``cuobjdump -sass`` of ``csrc/<name>.cu``'s library."""
     lib = build.library_path(name)
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300)
     check(sass.returncode == 0, f"cuobjdump -sass {lib.name} failed: "
                                 f"{sass.stderr.strip()[-400:]}")
-    hgmma = len(re.findall(r"\bHGMMA\b", sass.stdout))
+    return sass.stdout
+
+
+def sass_hgmma(build, name: str, kernel: str) -> int:
+    """HGMMA (wgmma) instructions in ``cuobjdump -sass`` of
+    ``csrc/<name>.cu``'s library; fails at none."""
+    hgmma = len(re.findall(r"\bHGMMA\b", sass_of(build, name)))
     check(hgmma > 0, f"{kernel}'s library has no HGMMA instruction: the "
                      f"tensor-core kernel does not run on the tensor cores")
     return hgmma
+
+
+#: select_rows_kernel's float64 arithmetic in PTX: every add, subtract
+#: and multiply carries an explicit rounding mode, which ptxas may not fuse
+#: into an FMA (PTX ISA, ``add``/``mul``); no ``fma`` is there to begin
+#: with
+PTX_F64_OP = re.compile(r"\b(add|sub|mul|fma|div)((?:\.\w+)*)\.f64\b")
+#: instructions after a division's MUFU.RCP64H within which its DFMAs (the
+#: reciprocal's Newton steps and the quotient's correction) must lie
+DIV_WINDOW = 24
+
+
+def k1_ptx_start(build) -> subprocess.Popen:
+    """``nvcc -ptx`` of K1's source with the library's flags, started
+    beside the build: the library holds SASS only."""
+    out = build.BUILD_DIR / "masked_select.ptx"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    flags = [f.replace("code=sm_90a", "code=compute_90a") for f in flags]
+    return subprocess.Popen(
+        [build.nvcc_path(), *flags, "-ptx", "-o", str(out),
+         str(build.CSRC / "masked_select.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def sass_functions(sass: str) -> dict[str, list[tuple[int, str]]]:
+    """(address, instruction) of each function in ``cuobjdump -sass``
+    output, by mangled name."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = m.group(1)
+            out[name] = []
+        elif name and (m := re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;",
+                                     line)):
+            out[name].append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def division_only_dfma(ins: list[tuple[int, str]]) -> dict:
+    """Where the DFMAs of one kernel's SASS lie.  A correctly rounded
+    float64 division on sm_90 is MUFU.RCP64H, Newton steps and a
+    correction in DFMA, and a call into a slow-path subroutine for
+    operands near the range's ends; no other DFMA may appear: each one in
+    the kernel's own code must lie within :data:`DIV_WINDOW` instructions
+    after a MUFU.RCP64H, and every division must hold the same number, so
+    a contracted multiply-add would show as a stray or a surplus."""
+    targets = [int(m.group(1), 16) for _, text in ins
+               if (m := re.match(r"CALL\.REL\S*\s+0x([0-9a-f]+)", text))]
+    sub = min(targets, default=float("inf"))  # the called subroutine
+    body = [text for addr, text in ins if addr < sub]
+    rcp = [i for i, text in enumerate(body) if "MUFU.RCP64H" in text]
+    per, stray = dict.fromkeys(rcp, 0), 0
+    for i, text in enumerate(body):
+        if not re.search(r"\bDFMA\b", text):
+            continue
+        owner = max((r for r in rcp if r < i), default=None)
+        if owner is None or i - owner > DIV_WINDOW:
+            stray += 1
+        else:
+            per[owner] += 1
+    return {"divisions": len(rcp), "dfma_per_division": sorted(
+                set(per.values())), "stray_dfma": stray,
+            "slow_path_dfma": sum(bool(re.search(r"\bDFMA\b", text))
+                                  for addr, text in ins if addr >= sub)}
+
+
+def k1_instructions(build, ptx: subprocess.Popen) -> dict:
+    """``select_rows_kernel`` keeps the plain version's float64 rounding:
+    in its PTX no float64 ``fma`` and no add, subtract or multiply without
+    ``.rn``; in its SASS every DFMA is a division's own
+    (:func:`division_only_dfma`), as many divisions as PTX's
+    ``div.rn.f64``; and the registers and spills of each kernel of the
+    library."""
+    log, _ = ptx.communicate()
+    check(ptx.returncode == 0, f"nvcc -ptx of K1 failed:\n{log[-2000:]}")
+    text = (build.BUILD_DIR / "masked_select.ptx").read_text()
+    entries = {m.group(1): body for m, body in zip(
+        re.finditer(r"\.entry (\S+?)\(", text),
+        re.split(r"\.entry \S+?\(", text)[1:])}
+    sass = sass_functions(sass_of(build, "masked_select"))
+    ptxas = ptxas_kernels(build.ptxas_report("masked_select"))
+    out = {}
+    for name, body in entries.items():
+        if "select_rows_kernel" not in name:
+            continue
+        ops = [(m.group(1), m.group(2)) for m in PTX_F64_OP.finditer(body)]
+        unrounded = sum(op in ("add", "sub", "mul") and ".rn" not in mods
+                        for op, mods in ops)
+        fma = sum(op == "fma" for op, _ in ops)
+        div = sum(op == "div" and ".rn" in mods for op, mods in ops)
+        dfma = division_only_dfma(sass[name])
+        key = "staged" if "ILb1E" in name else "device_memory"
+        out[key] = {"ptx_f64_ops": len(ops), "ptx_fma_f64": fma,
+                    "ptx_f64_without_rn": unrounded,
+                    "ptx_div_rn_f64": div, **dfma, **ptxas.get(name, {})}
+        check(fma == 0 and unrounded == 0 and div > 0,
+              f"select_rows_kernel ({key}) PTX holds float64 arithmetic "
+              f"that may be contracted: {out[key]}")
+        check(dfma["stray_dfma"] == 0 and dfma["divisions"] == div
+              and len(dfma["dfma_per_division"]) == 1,
+              f"select_rows_kernel ({key}) SASS holds a DFMA outside its "
+              f"divisions: {out[key]}")
+    check(set(out) == {"staged", "device_memory"},
+          f"K1's PTX lists select_rows_kernel as {sorted(out)}")
+    return {"k1_select_rows_instructions": out}
 
 
 def k2_instructions(build) -> dict:
@@ -340,7 +486,9 @@ def k3_instructions(build) -> dict:
 # phase 1
 
 
-def phase_k1() -> dict:
+def k1_masked_select() -> dict:
+    """K1's standalone reduction, ``masked_select_fwd``, against its plain
+    version, bitwise; its times at the cluster-B step's mask shape."""
     from repro_torch.kernels.ref import masked_select_ref
     from repro_torch.kernels.select_move import masked_select_fwd
     dev = torch.device("cuda")
@@ -401,7 +549,132 @@ def phase_k1() -> dict:
            "library_device_ms": lib_dev, "bytes": nbytes, "ops": M * D,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit("k1_masked_select", **out)
+    return out
+
+
+#: float64 and int32 operations an H100 SXM completes a second: 132 SMs x
+#: 64 FP64 (or INT32) units x the 1.98 GHz boost clock, one operation per
+#: unit per cycle with no FMA to pair them (half the data sheet's 34
+#: TFLOP/s of float64 FMA)
+F64_OPS_PER_S = INT_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def select_rows_work(args: tuple, div_ops: int) -> dict:
+    """The operations and bytes that ``select_rows_kernel`` needs on this
+    carry, counted as the kernel does the work (the masks of
+    ``select_rows_masks``, the kernel's order): per (row, device) pair of a
+    live row, the capacity add and three float64 compares and six integer
+    tests; per pair that passes them, 2 S integer compares against the
+    acting slots; per candidate, the variance test's 11 float64 adds,
+    subtracts and multiplies, one compare and three divisions of
+    ``div_ops`` float64 instructions each; per legal pair, one compare.
+    Bytes: the (n,) device vectors and the destination-count table read
+    once, each row's carry entries once, the outputs written once."""
+    from repro_torch.kernels.ref import select_rows_masks
+    m = select_rows_masks(*args)
+    src_order, _, _, dyn, const, _ = args
+    k, R, n = m["cand"].shape
+    S, L = dyn["acting"].shape[1], const["dev_domain"].shape[0]
+    P = dyn["dst_ok"].shape[0]
+    live = int(m["live"].sum()) * n
+    pre, cand, valid = (int(m[key].sum()) for key in ("pre", "cand", "valid"))
+    f64 = 4 * live + (12 + 3 * div_ops) * cand + valid
+    ints = 6 * live + 2 * S * pre
+    nbytes = (n * (5 * 8 + 1 + 8 * L) + P * n
+              + k * R * (8 + 2 * 8 + 8 * 8 + 8 * S) + k * R * 5 + 9 * k)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(f64 / F64_OPS_PER_S, ints / INT_OPS_PER_S) * 1e3
+    return {"shape": {"k": k, "R": R, "n": n, "S": S, "L": L},
+            "live_pairs": live, "pairs_to_slot_tests": pre,
+            "candidate_pairs": cand, "legal_pairs": valid,
+            "f64_ops": f64, "int_ops": ints, "div_f64_instructions": div_ops,
+            "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_k1(card: str, base_b, env: dict) -> dict:
+    """K1's fused selection ``select_rows_fwd`` against its plain version
+    on the card, bitwise (any, dst, cand_src), on the test carries
+    (``tests/_select_rows_carries.py``: three paper clusters, source
+    bounds on and off, parked sources, the knife's edge of the variance
+    test on each side) and on the first step of cluster B (staged and
+    from device memory); its kernel, plain and bound times at cluster B's
+    first step; then the standalone ``masked_select_fwd``."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _select_rows_carries import (CARRIES, carry, carry_id, knife_edge,
+                                      to_device)
+    from repro_torch.core.equilibrium_batch import BatchPlanner
+    from repro_torch.kernels import select_move
+    from repro_torch.kernels.ref import select_rows_ref
+    dev = torch.device("cuda")
+    cases = [(carry_id(c), carry(*c)) for c in CARRIES]
+    cases += [(f"knife edge {c} {'inside' if inside else 'on'}",
+               knife_edge(carry(c, 0, True, False), inside)[0])
+              for c in ("small_test_cluster", "cluster_d")
+              for inside in (False, True)]
+    planner = BatchPlanner(base_b.copy(), device="cuda")
+    planner.sync()
+    step = planner._step
+    _, src_order, n_avail = step.sources()
+    args_b = (src_order, n_avail, step.cap_lim, step.dyn, step.const,
+              step.scal)
+    cases.append(("cluster_b-step0", args_b))
+    select_move.reset_launch_count()
+    worst = 0
+    for name, args in cases + [("cluster_b-step0 device memory", args_b)]:
+        args = to_device(args, dev)
+        got = select_move.select_rows_fwd(
+            *args, smem_limit=0 if "device memory" in name else None)
+        want = select_rows_ref(*args)
+        torch.cuda.synchronize()
+        err = int((got[1].long() - want[1].long()).abs().max())
+        worst = max(worst, err)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"select_rows differs from its plain version on {name} (max "
+              f"|dst diff| {err}, any {torch.equal(got[0], want[0])}, "
+              f"cand_src {torch.equal(got[2], want[2])})")
+    check(select_move.launch_counts()["select_rows"] == len(cases) + 1,
+          f"select_rows launches {select_move.launch_counts()}")
+
+    ins = env["k1_select_rows_instructions"]["staged"]
+    work = select_rows_work(args_b, ins["dfma_per_division"][0] + 1)
+    # the staged variant (the rule) and the device-memory one (the path
+    # for device vectors that do not fit) in turns, three each, each on
+    # the carry bound once as the planner binds it; the kernel's times
+    # are the staged variant's medians
+    turns = {"staged": [], "device_memory": []}
+    for _ in range(3):
+        for name, limit in (("staged", None), ("device_memory", 0)):
+            bound = select_move.SelectRows(*args_b[2:], smem_limit=limit)
+            turns[name].append({
+                "ms": time_cuda(lambda: bound(*args_b[:2])),
+                "device_ms": device_ms(lambda: bound(*args_b[:2]), 50)})
+    ms, dev_ms = (float(np.median([t[key] for t in turns["staged"]]))
+                  for key in ("ms", "device_ms"))
+    # the wrapper's host cost a call: bound once (the planner's way)
+    # against checked and packed on every call
+    bound = select_move.SelectRows(*args_b[2:])
+    host = {"bound_us": host_us(lambda: bound(*args_b[:2])),
+            "one_shot_us": host_us(
+                lambda: select_move.select_rows_fwd(*args_b))}
+    plain_ms = time_cuda(lambda: select_rows_ref(*args_b), 20, 2)
+    # the plain version's ~150 launches take the host ~10 ms a call to
+    # queue: three calls fit the sleep
+    plain_dev_ms = device_ms(lambda: select_rows_ref(*args_b), 3, 1)
+    out = {"card": card, "cases": len(cases) + 1, "max_abs_err": worst,
+           "comparison": "bitwise: any, dst and cand_src",
+           "at": "cluster B's first step", "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms,
+           "library_ms": None, "library_device_ms": None,
+           "library": "none: no single PyTorch call computes the selection",
+           "variants": turns, "host": host, **work,
+           "bound_note": f"operations over {F64_OPS_PER_S:.4g}/s each of "
+                         f"float64 and int32; a division counted as its "
+                         f"{work['div_f64_instructions']} float64 "
+                         f"instructions (DFMA and DMUL) in phase 0's SASS"}
     emit("k1", **out)
+    out["standalone"] = k1_masked_select()
     return out
 
 
@@ -516,23 +789,34 @@ def profile_chunk(state, card: str) -> dict:
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     ops = sum(r[2] for r in rows)
+    k1 = [(us, n) for us, key, n in rows if K1_KERNEL in key]
     return {"card": card, "chunk_steps": planner.chunk, "moves": moves,
             "wall_s": wall, "device_busy_s": busy_s if rows else None,
             "idle_share": (1.0 - busy_s / wall) if rows else None,
             "device_ops": ops, "device_ops_per_step": ops / planner.chunk,
+            "k1_device_ms": sum(us for us, _ in k1) / 1e3,
+            "k1_calls_recorded": sum(n for _, n in k1),
             "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
                     for us, k, n in rows[:12]]}
 
 
-def phase_full(card: str, scale: int = 1) -> dict:
-    from repro_torch import obs
+def build_cluster_b(scale: int = 1) -> tuple:
+    """``cluster_b(scale)`` and the host seconds its build took."""
     from repro_torch.core.clustergen import cluster_b
+    t0 = time.perf_counter()
+    base = cluster_b(scale=scale)
+    return base, time.perf_counter() - t0
+
+
+def phase_full(card: str, scale: int = 1, built: tuple | None = None
+               ) -> dict:
+    """A cold plan of ``cluster_b(scale)`` (``built``: the cluster and its
+    build seconds, where the caller built it)."""
+    from repro_torch import obs
     from repro_torch.core.planner import create_planner
     from repro_torch.kernels import select_move
     want = bench_row(BENCH_ROWS[scale])
-    t0 = time.perf_counter()
-    base = cluster_b(scale=scale)
-    build_s = time.perf_counter() - t0
+    base, build_s = built or build_cluster_b(scale)
     check((base.n_devices, len(base.acting)) == (995 * scale, 8731 * scale),
           f"cluster B x{scale} shape")
 
@@ -548,7 +832,7 @@ def phase_full(card: str, scale: int = 1) -> dict:
                        record_free_space=False)
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
-    launches = select_move.launch_count()
+    launches = select_move.launch_counts()
     chunk_s = res.stats["selection_seconds"]    # every chunk's wall time
     peak = torch.cuda.max_memory_allocated()
     d = reg.deltas_since(snap)
@@ -568,7 +852,10 @@ def phase_full(card: str, scale: int = 1) -> dict:
     check(st["host_syncs"] == chunks + repads,
           f"host syncs {st['host_syncs']} != chunks {chunks} + re-pads "
           f"{repads}")
-    check(launches >= n, f"K1 launched {launches} times for {n} moves")
+    steps = chunks * planner._impl.chunk
+    check(launches == {"select_rows": steps, "masked_select": 0},
+          f"K1 launched {launches} times over {chunks} chunks ({steps} "
+          f"steps) of {n} moves, expected select_rows once a step")
 
     # the first 200 moves, bitwise against the host faithful planner
     t1 = time.perf_counter()
@@ -588,7 +875,7 @@ def phase_full(card: str, scale: int = 1) -> dict:
            "plan_s": plan_s, "moves_per_s": n / plan_s,
            "chunks_s": chunk_s, "setup_s": plan_s - chunk_s,
            "host_syncs": st["host_syncs"], "chunks": chunks,
-           "repads": repads, "k1_launches": launches,
+           "repads": repads, "k1_launches": launches["select_rows"],
            "bound_hits": st["bound_hits"],
            "pruned_sources": st["pruned_sources"],
            "peak_mem_bytes": peak, "faithful_200_s": faithful_s,
@@ -1353,9 +1640,10 @@ def main() -> int:
     if args.plan_only:
         phase_full(card)
         return 0
-    k1 = phase_k1()
+    built_b = build_cluster_b()
+    k1 = phase_k1(card, built_b[0], env)
     phase_small()
-    full = phase_full(card)
+    full = phase_full(card, built=built_b)
     phase_full(card, scale=2)
     phase_no_sync()
     k2 = phase_k2(card)
@@ -1379,11 +1667,21 @@ def main() -> int:
         | {k: simt[k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
         | {"max_abs_err": simt["errors"]["float32"]["max_abs_err"]})
+    # K1's entry is the fused kernel the planner launches; the standalone
+    # reduction, which no main path launches, stands beside it
+    k1_entry = kernel_entry("select_rows", "masked_select.cu",
+                            "src/repro/kernels/select_move.py:44",
+                            full["k1_launches"], k1)
+    alone = k1["standalone"]
+    k1_entry.update(
+        launches_by_kernel={"select_rows": full["k1_launches"],
+                            "masked_select": 0},
+        standalone_masked_select={"launches": 0} | {k: alone[k] for k in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")})
     emit("profiles", sessions=PROFILE_LOG)
     print(json.dumps({"kernels": [
-        kernel_entry("masked_select", "masked_select.cu",
-                     "src/repro/kernels/select_move.py:44",
-                     full["k1_launches"], k1),
+        k1_entry,
         kernel_entry("flash_attention", "flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:87",
                      pre["k2_launches"], k2),

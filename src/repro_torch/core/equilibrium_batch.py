@@ -16,10 +16,12 @@ of up to ``chunk`` moves:
   walks (source, row-block) tiles in a ``lax.while_loop`` until the
   faithful winner is decided; torch has no data-dependent loop without a
   host sync.  This step evaluates every criterion on the full
-  ``(k, r_cap, n_dev)`` tensor of the compacted top-k sources at once —
-  the reference's ``source_block=k``, ``row_block ≥ r_cap`` tile, which
-  its own tests pin as move-for-move identical — and reduces it with one
-  launch of kernel K1 (:func:`repro_torch.kernels.ops.masked_select`).
+  ``(k, r_cap, n_dev)`` candidate space of the compacted top-k sources at
+  once — the reference's ``source_block=k``, ``row_block ≥ r_cap`` tile,
+  which its own tests pin as move-for-move identical — and reduces it per
+  row, all in one launch of kernel K1
+  (:func:`repro_torch.kernels.ops.bind_select_rows`), which never writes the
+  mask to device memory.
   At the reference default ``source_block=1`` the walk's outcome is a
   closed form, derived here with masked reductions and no loop:
 
@@ -71,7 +73,7 @@ from .dense import DenseState
 from .equilibrium import EquilibriumConfig, MoveRecord
 from .tail import tail_flush, tail_record, tail_stats, tail_terminal
 from .. import obs as _obs
-from ..kernels.ops import masked_select
+from ..kernels.ops import bind_select_rows
 from ..device import resolve_device
 from ..kernels.select_move import compact_parked
 from ..obs import registry as _obs_registry
@@ -153,6 +155,8 @@ class _Chunk:
         self.pos = torch.arange(k, device=dev)
         self.cap_lim = legality.capacity_limit(const["cap"],
                                                scal["headroom"])
+        # K1 bound to this carry (checked once; a re-pad rebinds it)
+        self.select_rows = bind_select_rows(self.cap_lim, dyn, const, scal)
 
     @property
     def r_cap(self) -> int:
@@ -160,69 +164,32 @@ class _Chunk:
 
     # -- selection -----------------------------------------------------------
 
+    def sources(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The step's top-k sources: (the fullest-first ``order_k``, the
+        order the step scans them in, the 0-dim count of available ones).
+        Under source bounds the unpruned sources come first (fullest-first
+        order preserved) and the pruned ones are parked at the back."""
+        order_k = self.dyn["order"][:self.k]  # maintained argsort(-util)
+        if self.bounds:
+            return (order_k, *compact_parked(order_k,
+                                             self.dyn["pruned"][order_k]))
+        return order_k, order_k, torch.full((), self.k,
+                                            device=self.pos.device)
+
     def select(self, active: torch.Tensor):
         """One §3.1 planning step's selection over the full candidate
         tensor; updates ``pruned`` (where ``active``) and returns
         (found, row, src, dst, tried, skipped), each (1,)."""
         d, c, s = self.dyn, self.const, self.scal
         k, r_cap = self.k, self.r_cap
-        used, util = d["used"], d["util"]
-        iota, pos = self.dev_iota, self.pos
-        order_k = d["order"][:k]            # maintained argsort(-util, stable)
-        if self.bounds:
-            # unpruned sources first (fullest-first order preserved),
-            # pruned ones parked at the back and excluded by n_avail
-            src_order, n_avail = compact_parked(order_k, d["pruned"][order_k])
-        else:
-            src_order, n_avail = order_k, torch.full((), k, device=pos.device)
-        avail = pos < n_avail                                  # (k,)
-        rows_k = d["rows_on"][src_order]                       # (k, R)
-        real = rows_k >= 0
-        r = rows_k.clamp(min=0)             # -1 padding gathers row 0, masked
-        pg, lvl, slot = c["sh_pg"][r], c["sh_level"][r], c["sh_slot"][r]
-        sbase, scnt = c["sh_sbase"][r], c["sh_scnt"][r]
-        pool = c["sh_pool"][r]
-        size = torch.where(real, c["sh_size"][r], 0.0)         # (k, R) f64
-
-        # static legality: class match ∧ ¬member ∧ failure-domain free,
-        # from the acting table, all S slots of each row's PG at once
-        # (the reference loops over the slots; one (k, R, S, n) compare
-        # per test is the same OR with a few launches instead of ~12 per
-        # slot).  Padded slots are -1: never a member, never a peer.
-        acting_t = d["acting"][pg]                             # (k, R, S)
-        j = torch.arange(acting_t.shape[2], device=iota.device)
-        lo, n_in = sbase[..., None], scnt[..., None]
-        in_step = (lo <= j) & (lo + n_in > j) & (slot[..., None] != j)
-        peer = torch.where(in_step, c["dev_domain"][lvl[..., None],
-                                                    acting_t.clamp(min=0)],
-                           -1)                 # domain ids are >= 0
-        member = (acting_t[..., None] == iota).any(dim=2)      # (k, R, n)
-        clash = (c["dev_domain"][lvl][:, :, None, :]
-                 == peer[..., None]).any(dim=2)
-        static = legality.class_ok(c["sh_class"][r][..., None],
-                                   c["dev_class"]) & ~(member | clash)
-
-        # candidate mask: every criterion except the variance test
-        src_c = src_order[:, None]                             # (k, 1)
-        src_cc = src_order[:, None, None]                      # (k, 1, 1)
-        cap_ok = legality.capacity_ok(used, self.cap_lim, size[..., None])
-        crit = d["dst_ok"][pool]                               # (k, R, n)
-        src_ok = legality.src_count_ok(d["pool_counts"][pool, src_c],
-                                       c["ideal"][pool, src_c], s["slack"])
-        u_s = util[src_order][:, None, None]
-        before_src = legality.before_source(util, u_s, iota, src_cc)
-        cand = (static & cap_ok & crit & (real & src_ok)[..., None]
-                & (iota != src_cc) & c["dev_in"] & before_src)
-
-        # exact variance acceptance (float64, reference operand order)
-        var_ok = legality.variance_improves(
-            used[src_order][:, None, None], used,
-            c["cap"][src_order][:, None, None], c["cap"], u_s, util,
-            size[..., None], d["us"], d["usq"], s["n_f"], s["min_dvar"])
-        any_row, dst = masked_select((cand & var_ok).view(k * r_cap, -1),
-                                     util)                      # K1
-        any_row = any_row.view(k, r_cap) & avail[:, None]
+        pos = self.pos
+        order_k, src_order, n_avail = self.sources()
+        # every criterion and the reduction in one K1 launch; ``any_row``
+        # is already False for parked sources
+        any_row, dst, cand_src = self.select_rows(src_order, n_avail)
+        any_row = any_row.view(k, r_cap)
         dst = dst.view(k, r_cap)
+        rows_k = d["rows_on"][src_order]                       # (k, R)
 
         # winner: the first available source with a legal row
         src_has = any_row.any(dim=1)                           # (k,)
@@ -240,8 +207,7 @@ class _Chunk:
             rank = _first_true(order_k == win_dev).view(1)
             # certificates: scanned, fruitless sources with no candidate
             # pair on any row — the verdict the variance test cannot undo
-            no_cand = ~cand.flatten(1).any(dim=1)              # (k,)
-            prunable = (pos < p) & avail & no_cand & active
+            prunable = (pos < p) & (pos < n_avail) & ~cand_src & active
             pr = d["pruned"]
             pr[src_order] = pr[src_order] | prunable    # src_order: distinct
         else:

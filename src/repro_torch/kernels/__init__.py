@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch
 versions.
 
-* :mod:`.select_move` — K1, the masked move-selection reduction
-  (``csrc/masked_select.cu``), and the source-queue stable partition;
+* :mod:`.select_move` — K1, the planner step's fused selection and the
+  standalone masked move-selection reduction (``csrc/masked_select.cu``),
+  and the source-queue stable partition;
 * :mod:`.flash_attention` — K2, the attention forward
   (``csrc/flash_attention.cu``);
 * :mod:`.ssd_scan` — K3, the Mamba-2 SSD chunked scan

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
-What :mod:`.ops` runs on CPU tensors: K1 ``masked_select_ref``, K2
-``flash_attention_online`` (online softmax over KV blocks) and K3
+What :mod:`.ops` runs on CPU tensors: K1 ``select_rows_ref`` (the
+planner step's selection over ``select_rows_masks``, ending in
+``masked_select_ref``) and
+``masked_select_ref``, K2 ``flash_attention_online`` (online softmax over KV blocks) and K3
 ``ssd_chunked`` (the chunk loop), the same schedules as the reference
 model's own code.
 
@@ -39,6 +41,100 @@ def masked_select_ref(valid: torch.Tensor, util: torch.Tensor
     iota = torch.arange(n, device=valid.device)
     dst = torch.where(masked == best, iota, n).amin(dim=1)
     return valid.any(dim=1), dst.to(torch.int32)
+
+
+def select_rows_masks(src_order: torch.Tensor, n_avail: torch.Tensor,
+                      cap_lim: torch.Tensor, dyn: dict, const: dict,
+                      scal: dict) -> dict[str, torch.Tensor]:
+    """The masks behind :func:`select_rows_ref`, in the order K1's fused
+    kernel tests them: ``live`` (k, R) — a real row whose source-count
+    criterion holds; ``pre`` (k, R, n) — live, and every criterion but
+    the acting-slot tests and the variance test; ``cand`` (k, R, n) — pre
+    with the destination neither a member of the row's PG nor in a
+    failure domain its rule step holds; ``valid`` — cand and the variance
+    test; ``avail`` (k,) — the source is not parked."""
+    # the legality core's package imports the engines, which import this
+    # module: bind it at the first call
+    from ..core import legality
+    d, c, s = dyn, const, scal
+    used, util = d["used"], d["util"]
+    k = src_order.shape[0]
+    iota = torch.arange(used.shape[0], device=used.device)
+    avail = torch.arange(k, device=used.device) < n_avail      # (k,)
+    rows_k = d["rows_on"][src_order]                           # (k, R)
+    real = rows_k >= 0
+    r = rows_k.clamp(min=0)             # -1 padding gathers row 0, masked
+    pg, lvl, slot = c["sh_pg"][r], c["sh_level"][r], c["sh_slot"][r]
+    sbase, scnt = c["sh_sbase"][r], c["sh_scnt"][r]
+    pool = c["sh_pool"][r]
+    size = torch.where(real, c["sh_size"][r], 0.0)             # (k, R) f64
+
+    # every criterion but the slots' and the variance test
+    src_c = src_order[:, None]                                 # (k, 1)
+    src_cc = src_order[:, None, None]                          # (k, 1, 1)
+    live = real & legality.src_count_ok(d["pool_counts"][pool, src_c],
+                                        c["ideal"][pool, src_c], s["slack"])
+    u_s = util[src_order][:, None, None]
+    pre = (live[..., None] & c["dev_in"] & (iota != src_cc)
+           & legality.before_source(util, u_s, iota, src_cc)
+           & legality.class_ok(c["sh_class"][r][..., None], c["dev_class"])
+           & d["dst_ok"][pool]
+           & legality.capacity_ok(used, cap_lim, size[..., None]))
+
+    # not a member, failure domain free: from the acting table, all S
+    # slots of each row's PG at once (the reference loops over the slots;
+    # one (k, R, S, n) compare per test is the same OR).  Padded slots are
+    # -1: never a member, never a peer.
+    acting_t = d["acting"][pg]                                 # (k, R, S)
+    j = torch.arange(acting_t.shape[2], device=iota.device)
+    lo, n_in = sbase[..., None], scnt[..., None]
+    in_step = (lo <= j) & (lo + n_in > j) & (slot[..., None] != j)
+    peer = torch.where(in_step, c["dev_domain"][lvl[..., None],
+                                                acting_t.clamp(min=0)],
+                       -1)                     # domain ids are >= 0
+    member = (acting_t[..., None] == iota).any(dim=2)          # (k, R, n)
+    clash = (c["dev_domain"][lvl][:, :, None, :]
+             == peer[..., None]).any(dim=2)
+    cand = pre & ~(member | clash)
+
+    # exact variance acceptance (float64, reference operand order)
+    var_ok = legality.variance_improves(
+        used[src_order][:, None, None], used,
+        c["cap"][src_order][:, None, None], c["cap"], u_s, util,
+        size[..., None], d["us"], d["usq"], s["n_f"], s["min_dvar"])
+    return {"live": live, "pre": pre, "cand": cand, "valid": cand & var_ok,
+            "avail": avail}
+
+
+def select_rows_ref(src_order: torch.Tensor, n_avail: torch.Tensor,
+                    cap_lim: torch.Tensor, dyn: dict, const: dict,
+                    scal: dict
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The batched planner step's selection, plain version of K1's fused
+    kernel (:func:`repro_torch.kernels.select_move.select_rows_fwd`).
+
+    Reads the carry of :class:`repro_torch.core.equilibrium_batch._Chunk`
+    as it stands (``dyn``, ``const``, ``scal``, and ``cap_lim`` = the
+    capacities under the headroom) for the k sources ``src_order`` whose
+    first ``n_avail`` (0-dim) are not parked, and evaluates every
+    criterion of moving each source's shard row ``r`` (of ``r_cap``) to
+    each device on the full ``(k, r_cap, n_dev)`` tensor, with the legality
+    core's expressions in float64 (:func:`select_rows_masks`).  Returns
+
+    * ``any`` (k · r_cap,) bool — the row has a legal destination, and its
+      source is available;
+    * ``dst`` (k · r_cap,) int32 — the emptiest legal destination, ties to
+      the lowest index, 0 where none (:func:`masked_select_ref`);
+    * ``cand_src`` (k,) bool — some row of the source has a pair that
+      passes every criterion but the variance test (the source-bound
+      certificates' test).
+    """
+    m = select_rows_masks(src_order, n_avail, cap_lim, dyn, const, scal)
+    k, r_cap, n = m["valid"].shape
+    any_row, dst = masked_select_ref(m["valid"].view(k * r_cap, n),
+                                     dyn["util"])
+    any_row = (any_row.view(k, r_cap) & m["avail"][:, None]).view(-1)
+    return any_row, dst, m["cand"].flatten(1).any(dim=1)
 
 
 NEG_INF = -1e30

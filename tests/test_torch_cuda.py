@@ -1,6 +1,6 @@
-"""The port's CUDA kernels K2 (flash attention) and K3 (the SSD scan)
-against their plain versions, and the LM prefill through them against
-the same parameters on the CPU.  Every test needs a card (``cuda``
+"""The port's CUDA kernels K1's fused selection (``select_rows``), K2
+(flash attention) and K3 (the SSD scan) against their plain versions,
+and the LM prefill through them against the same parameters on the CPU.  Every test needs a card (``cuda``
 marker) and skips without one; the file imports no JAX, so it runs
 where the card is:
 
@@ -19,15 +19,21 @@ float32 plain version, each (token, head) row within 1e-2, and within
 4 x the SIMT variant's error on the same inputs.  The SIMT K3 at state
 widths 128 and 256 (mamba2-2.7b's N and the widest the block fits) is
 held to the float32 plain version at 1e-4 in float32 and, in bf16, per
-row at 1e-2."""
+row at 1e-2.  ``select_rows`` is held bitwise to ``select_rows_ref`` on
+the planner carries of ``tests/_select_rows_carries.py``, the knife's
+edge of the variance test on each side among them."""
 
 import numpy as np
 import pytest
 import torch
 
+from _select_rows_carries import (CARRIES, carry, carry_id, knife_edge,
+                                  to_device)
 from repro_torch.kernels import flash_attention as k2
+from repro_torch.kernels import select_move
 from repro_torch.kernels import ssd_scan as k3
-from repro_torch.kernels.ref import flash_attention_plain, ssd_scan_plain
+from repro_torch.kernels.ref import (flash_attention_plain, select_rows_ref,
+                                     ssd_scan_plain)
 from repro_torch.models.lm import ssd_ramps
 
 pytestmark = pytest.mark.cuda
@@ -347,3 +353,70 @@ def test_prefill_on_card_matches_cpu(card):
     assert (k2.launch_count(), k3.launch_count()) == (2, 4)
     want = prefill(on_cpu, {"tokens": tok})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def _select_rows_matches_plain(args, card, smem_limit=None):
+    """K1's fused selection on the card equals its plain version there,
+    bitwise, in one launch."""
+    args = to_device(args, card)
+    before = select_move.launch_counts()["select_rows"]
+    got = select_move.select_rows_fwd(*args, smem_limit=smem_limit)
+    assert select_move.launch_counts()["select_rows"] == before + 1
+    want = select_rows_ref(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("any", "dst", "cand_src"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("case", CARRIES, ids=carry_id)
+def test_k1_select_rows_matches_plain(card, case):
+    _select_rows_matches_plain(carry(*case), card)
+
+
+@pytest.mark.parametrize("inside", [False, True], ids=["on", "inside"])
+@pytest.mark.parametrize("cluster", ["small_test_cluster", "cluster_d"])
+def test_k1_select_rows_on_a_knife_edge(card, cluster, inside):
+    args, _ = knife_edge(carry(cluster, 0, True, False), inside)
+    _select_rows_matches_plain(args, card)
+
+
+def test_k1_select_rows_without_staging(card):
+    """Device vectors that do not fit a block's shared memory are read
+    from device memory, with the same results."""
+    for case in CARRIES[::4]:
+        _select_rows_matches_plain(carry(*case), card, smem_limit=0)
+
+
+def test_k1_select_rows_rebinds_a_replaced_carry(card):
+    """A carry bound once follows a tensor of it that the planner
+    replaces (a re-pad widens ``rows_on``): the next call checks and
+    packs the carry again and still equals the plain version."""
+    src_order, n_avail, cap_lim, dyn, const, scal = to_device(
+        carry("cluster_a", 0, True, False), card)
+    bound = select_move.SelectRows(cap_lim, dyn, const, scal)
+    pad = torch.full((dyn["rows_on"].shape[0], 8), -1,
+                     dtype=dyn["rows_on"].dtype, device=card)
+    dyn["rows_on"] = torch.cat([dyn["rows_on"], pad], dim=1)
+    got = bound(src_order, n_avail)
+    want = select_rows_ref(src_order, n_avail, cap_lim, dyn, const, scal)
+    torch.cuda.synchronize()
+    assert got[0].shape == want[0].shape
+    for name, g, w in zip(("any", "dst", "cand_src"), got, want):
+        assert torch.equal(g, w), name
+
+
+def test_k1_select_rows_raises(card):
+    """A call the kernel cannot take raises and launches nothing."""
+    src_order, n_avail, cap_lim, dyn, const, scal = to_device(
+        carry("small_test_cluster", 0, True, False), card)
+    bad = {"util float32": ({**dyn, "util": dyn["util"].float()}, const),
+           "dev_in on the CPU": (dyn, {**const,
+                                       "dev_in": const["dev_in"].cpu()}),
+           "strided used": ({**dyn, "used": dyn["used"].repeat(2)[::2]},
+                            const)}
+    before = select_move.launch_count()
+    for name, (d, c) in bad.items():
+        with pytest.raises(ValueError):
+            select_move.select_rows_fwd(src_order, n_avail, cap_lim, d, c,
+                                        scal)
+    assert select_move.launch_count() == before

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch``
 loads neither JAX nor the reference package ``repro``; no module of the
-port, nor ``chip_smoke.py``, imports either; and the default device of
+port, nor ``chip_smoke.py`` or the planner carries it shares with the
+tests, imports either; and the default device of
 the batch engine and of the LM is the card — each raises without one
 rather than carrying on on the CPU."""
 
@@ -60,7 +61,8 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [REPO / "chip_smoke.py"],
+                         + [REPO / "chip_smoke.py",
+                            REPO / "tests" / "_select_rows_carries.py"],
                          ids=lambda p: p.relative_to(REPO).as_posix())
 def test_no_module_imports_jax_or_repro(path):
     roots = _imported_roots(path)
