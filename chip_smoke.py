@@ -12,10 +12,11 @@ phases, one JSON line each, and exits non-zero if any fails:
    ``select_rows_kernel`` keeps float64 rounding: its PTX (``nvcc -ptx``)
    has no float64 ``fma`` and no add, subtract or multiply without
    ``.rn``, and every DFMA of its SASS belongs to one of its divisions;
-   ``cuobjdump -sass`` of K2's and of K3's library must show ``HGMMA``
-   (the tensor-core kernels are on the tensor cores), and the registers,
-   stack and spills of each tensor-core kernel from the ``-Xptxas -v``
-   report (K3's with no spills);
+   ``cuobjdump -sass`` of K2's library and of each of K3's four
+   tensor-core instantiations (chunk 64 and 128 by state width 64 and
+   128) must show ``HGMMA`` (the tensor-core kernels are on the tensor
+   cores), and the registers, stack and spills of each tensor-core kernel
+   from the ``-Xptxas -v`` report (K3's with no spills);
 1. kernel K1: the fused ``select_rows`` against its plain PyTorch
    version on the card, bitwise (``any``, ``dst``, ``cand_src``), on the
    planner carries of ``tests/_select_rows_carries.py`` (three paper
@@ -60,10 +61,12 @@ phases, one JSON line each, and exits non-zero if any fails:
    the zamba2-7b shape with the ramps, its max abs and worst row error
    within 4 x the SIMT variant's on the same inputs (at chunk 32);
    misaligned bf16 views raise; launches by variant; kernel, plain and
-   bound times; the SIMT variant at mamba2-2.7b's shape (H 80, P 64,
-   N 128, chunk 128, the ramps) in float32 (1e-4) and bf16 (each row
-   within 1e-2 of the float32 plain version), with its kernel, plain and
-   bound times; the tensor-core workspace (``workspace_bytes``) at the
+   bound times; at mamba2-2.7b's shape (H 80, P 64, N 128, chunk 128,
+   the ramps) the tensor-core variant in bf16 (each row within 1e-2 of
+   the float32 plain version, its max abs and worst row error within 4 x
+   the SIMT variant's on the same inputs) and the SIMT variant in
+   float32 (1e-4), each with its kernel, plain and bound times; the
+   tensor-core workspace (``workspace_bytes``) at the
    zamba2 cell and at B 32, T 32768, H 112, and one tensor-core call at
    B 1, T 32768, H 112 against the plain version, with the memory it
    allocated beyond its inputs and output;
@@ -82,13 +85,15 @@ phases, one JSON line each, and exits non-zero if any fails:
    the CPU, rtol = atol = 1e-3;
 10. mamba2-2.7b at full width and depth (64 layers, 2,702,579,200
     float32 parameters), bf16, B 1, T 4096 (the same cut as phase 8):
-    finite (1, 50280) logits, K3 launched 64 times, all SIMT, K2 never;
-    seconds, tokens/s, peak memory and the profiled device-time shares of
-    K3 (all of it the SIMT kernel) and the rest, as in phase 8;
+    finite (1, 50280) logits, K3 launched 64 times, all on the
+    tensor-core variant (N 128), none SIMT, K2 never; seconds, tokens/s,
+    peak memory and the profiled device-time shares of K3 (all of it the
+    tensor-core kernel) and the rest, as in phase 8;
 11. the kernel table line (K1 once: ``select_rows``'s launches and
     times, and the standalone reduction's beside them; K3 once: the
-    tensor-core variant's launches and times, and the SIMT variant's at
-    mamba2's shape beside them); the last line names the device.
+    tensor-core variant's launches and times at the zamba2 prefill, and
+    beside them its N 128 instantiation's and the SIMT variant's at
+    mamba2's shape); the last line names the device.
 
 Kernel times come in two forms: ``ms``, CUDA events around calls the
 host issues back to back, and ``device_ms``, CUDA events around calls
@@ -461,21 +466,38 @@ def k2_instructions(build) -> dict:
                                     if "serializ" in line]}
 
 
+#: K3's tensor-core kernel by chunk Q and state width N, in a mangled name
+K3_TC_MANGLED = re.compile(r"ssd_scan_kernel_tcILi(\d+)ELi(\d+)E")
+
+
 def k3_instructions(build) -> dict:
-    """K3's library on the tensor cores: ``cuobjdump -sass`` must show
-    HGMMA; the registers, stack and spills of each tensor-core
-    instantiation (by chunk), none of which may spill."""
-    hgmma = sass_hgmma(build, "ssd_scan", "K3")
+    """K3's library on the tensor cores: the four tensor-core
+    instantiations (chunk Q 64 and 128, state width N 64 and 128) must
+    each hold HGMMA in ``cuobjdump -sass``; the registers, stack and
+    spills of each from the ``-Xptxas -v`` report, none of which may
+    spill."""
+    def key(name):
+        m = K3_TC_MANGLED.search(name)
+        return m and f"Q{m.group(1)}_N{m.group(2)}"
+    per_kernel = {key(name): sum(bool(re.search(r"\bHGMMA\b", ins))
+                                 for _, ins in body)
+                  for name, body in sass_functions(
+                      sass_of(build, "ssd_scan")).items() if key(name)}
     log = build.ptxas_report("ssd_scan")
-    tc = {f"Q{m.group(1)}": stats
-          for name, stats in ptxas_kernels(log).items()
-          if (m := re.search(r"ssd_scan_kernel_tcILi(\d+)E", name))}
-    check(len(tc) == 2, f"the ptxas report lists {len(tc)} tensor-core "
-                        f"instantiations of K3, expected 2")
+    tc = {key(name): stats for name, stats in ptxas_kernels(log).items()
+          if key(name)}
+    want = {f"Q{q}_N{n}" for q in (64, 128) for n in (64, 128)}
+    check(set(tc) == want and set(per_kernel) == want,
+          f"the ptxas report lists K3's tensor-core instantiations "
+          f"{sorted(tc)} and the SASS {sorted(per_kernel)}, expected "
+          f"{sorted(want)}")
+    check(all(per_kernel.values()), f"K3 tensor-core instantiations "
+                                    f"without HGMMA: {per_kernel}")
     spilled = {k: v for k, v in tc.items()
                if v.get("spill_stores") or v.get("spill_loads")}
     check(not spilled, f"K3's tensor-core kernels spill: {spilled}")
-    return {"k3_sass_hgmma": hgmma,
+    return {"k3_sass_hgmma": sum(per_kernel.values()),
+            "k3_sass_hgmma_by_kernel": dict(sorted(per_kernel.items())),
             "k3_tensor_core_ptxas": dict(sorted(tc.items())),
             "k3_wgmma_serialized": [line.strip() for line in
                                     log.splitlines()
@@ -1320,20 +1342,23 @@ def phase_k3(card: str) -> dict:
            "library_device_ms": None,
            "library": "none: no single PyTorch call computes the scan",
            **k3_bound(B, T, H, G, P, N, Q),
-           "simt_mamba2": wide, "workspace": ring}
+           "mamba2_shape": wide, "workspace": ring}
     emit("k3", **out)
     return out
 
 
-def k3_bound(B, T, H, G, P, N, Q) -> dict:
-    """K3's least time at a bf16 shape (dt and A float32): x and y,
-    dt, B and C at group width moved once; the scores and y_intra over
-    the lower triangle, y_inter and the state update at the bf16 rate."""
+def k3_bound(B, T, H, G, P, N, Q, dtype=torch.bfloat16) -> dict:
+    """K3's least time at a shape whose x, B, C and y are ``dtype`` (dt
+    and A float32): x and y, dt, B and C at group width moved once; the
+    scores and y_intra over the lower triangle, y_inter and the state
+    update at ``dtype``'s rate (bf16 on the tensor cores, float32 outside
+    them)."""
     tri = Q * (Q + 1) // 2                    # lower-triangle (t, u) pairs
     macs = B * H * (T // Q) * (tri * N + tri * P + 2 * Q * N * P)
-    nbytes = 2 * B * T * H * P * 2 + B * T * H * 4 + H * 4 \
-        + 2 * B * T * G * N * 2
-    return bound(nbytes, 2 * macs, torch.bfloat16)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = 2 * B * T * H * P * size + B * T * H * 4 + H * 4 \
+        + 2 * B * T * G * N * size
+    return bound(nbytes, 2 * macs, dtype)
 
 
 #: mamba2-2.7b's SSD call in its prefill (B 1, T 4096): 80 heads, G 1,
@@ -1342,46 +1367,81 @@ MAMBA2_SSD = dict(B=PREFILL_B, T=PREFILL_T, H=80, G=1, P=64, N=128, Q=128)
 
 
 def k3_wide_state(gen) -> dict:
-    """The SIMT K3 at mamba2-2.7b's shape on the model's ramps: float32
-    within rtol = atol = 1e-4 of the plain version; bf16 with every (token,
-    head) row within ROW_REL_TOL of the float32 plain version of the same
-    inputs; then its times in bf16, the prefill's dtype."""
+    """K3 at mamba2-2.7b's shape on the model's ramps.  bf16, the
+    prefill's dtype, takes the tensor-core variant: every (token, head)
+    row within ROW_REL_TOL of the float32 plain version of the same
+    inputs, and its max abs and worst row error within K3_TC_ERR_FACTOR of
+    the SIMT variant's on those inputs (at chunk 32, where route() sends
+    bf16); then its kernel, plain and bound times.  float32 keeps the SIMT
+    variant: within rtol = atol = 1e-4 of the plain version, with its
+    kernel and bound times."""
     from repro_torch.kernels import ssd_scan as k3
     from repro_torch.kernels.ref import ssd_scan_plain
     B, T, H, G, P, N, Q = MAMBA2_SSD.values()
-    check(k3.route(torch.bfloat16, P, N, Q) == "simt",
-          "route sends mamba2's N 128 off the SIMT variant")
+    bf16, f32 = torch.bfloat16, torch.float32
+    check(k3.route(bf16, P, N, Q) == "tensor_core"
+          and k3.route(f32, P, N, Q) == "simt",
+          "route sends mamba2's bf16 call off the tensor cores or its "
+          "float32 call off the SIMT variant")
+    ins = ssd_inputs(gen, B, T, H, G, P, N, bf16, ramp=True)
+    want = ssd_scan_plain(*(t.float() for t in ins))
     k3.reset_launch_count()
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        ins = ssd_inputs(gen, B, T, H, G, P, N, dtype, ramp=True)
-        got = k3.ssd_scan_fwd(*ins, chunk=Q)
-        want = ssd_scan_plain(*(t.float() for t in ins))
-        abs_err, row_err = attention_errors(got, want)
-        _, use = compare(got, want, dtype)
-        key = str(dtype)[6:]
-        errs[key] = {"max_abs_err": abs_err, "worst_row_rel_err": row_err,
-                     "tolerance_used": use}
-        check(use <= 1 and (dtype == torch.float32
-                            or row_err <= ROW_REL_TOL),
-              f"SIMT K3 at mamba2's shape in {key} differs from the "
-              f"float32 plain version: {errs[key]}")
-        del got, want
-    check(k3.launch_counts() == {"tensor_core": 0, "simt": 2},
-          f"mamba2-shape K3 launches {k3.launch_counts()}")
-    ms = time_cuda(lambda: k3.ssd_scan_fwd(*ins, chunk=Q), 10, 2)
-    dev_ms = device_ms(lambda: k3.ssd_scan_fwd(*ins, chunk=Q), 10)
-    plain_ms = time_cuda(lambda: ssd_scan_plain(*ins), 2, 0)
+    got = k3.ssd_scan_fwd(*ins, chunk=Q)
+    tc_abs, tc_row = attention_errors(got, want)
+    _, tc_use = compare(got, want, bf16)
+    simt_abs, simt_row = attention_errors(k3.ssd_scan_fwd(*ins, chunk=32),
+                                          want)
+    check(k3.launch_counts() == {"tensor_core": 1, "simt": 1},
+          f"mamba2-shape bf16 K3 launches {k3.launch_counts()}")
+    gate = {"tc_max_abs_err": tc_abs, "simt_max_abs_err": simt_abs,
+            "tc_worst_row_rel_err": tc_row, "simt_worst_row_rel_err":
+            simt_row, "tolerance_used": tc_use,
+            "y_max_abs": float(want.abs().max()),
+            "simt_chunk": 32,
+            "limit": f"tensor core <= {K3_TC_ERR_FACTOR} x SIMT, each; "
+                     f"row <= {ROW_REL_TOL}"}
+    check(tc_use <= 1 and tc_row <= ROW_REL_TOL
+          and tc_abs <= K3_TC_ERR_FACTOR * simt_abs
+          and tc_row <= K3_TC_ERR_FACTOR * simt_row,
+          f"the tensor-core K3 at mamba2's shape is less accurate than "
+          f"allowed: {gate}")
+    del got, want
+    tc = {"variant": "tensor_core", "errors": gate,
+          "shape": {**MAMBA2_SSD, "dtype": "bfloat16 (dt, A float32)"},
+          "ms": time_cuda(lambda: k3.ssd_scan_fwd(*ins, chunk=Q), 20, 2),
+          "device_ms": device_ms(lambda: k3.ssd_scan_fwd(*ins, chunk=Q)),
+          "plain_ms": time_cuda(lambda: ssd_scan_plain(*ins), 2, 0),
+          "workspace_bytes": k3.workspace_bytes(B, H, T, P, N, Q),
+          **k3_bound(B, T, H, G, P, N, Q)}
+
+    ins = ssd_inputs(gen, B, T, H, G, P, N, f32, ramp=True)
+    k3.reset_launch_count()
+    got = k3.ssd_scan_fwd(*ins, chunk=Q)
+    check(k3.launch_counts() == {"tensor_core": 0, "simt": 1},
+          f"mamba2-shape float32 K3 launches {k3.launch_counts()}")
+    want = ssd_scan_plain(*ins)
+    abs_err, row_err = attention_errors(got, want)
+    _, use = compare(got, want)
+    check(use <= 1, f"SIMT K3 at mamba2's shape in float32 differs from "
+                    f"the plain version: max abs err {abs_err}")
+    del got, want
+    simt = {"variant": "simt", "dtype": "float32",
+            "errors": {"max_abs_err": abs_err, "worst_row_rel_err": row_err,
+                       "tolerance_used": use},
+            "smem_bytes": k3._library().ssd_scan_smem_bytes(Q, P, N),
+            "ms": time_cuda(lambda: k3.ssd_scan_fwd(*ins, chunk=Q), 10, 2),
+            "device_ms": device_ms(lambda: k3.ssd_scan_fwd(*ins, chunk=Q),
+                                   10),
+            "plain_ms": time_cuda(lambda: ssd_scan_plain(*ins), 2, 0),
+            **k3_bound(B, T, H, G, P, N, Q, f32)}
     del ins
     torch.cuda.empty_cache()
-    return {"variant": "simt", "errors": errs,
-            "tolerance": "rtol = atol = 1e-4 (float32); bfloat16 each row "
-                         f"<= {ROW_REL_TOL} of the float32 plain version",
-            "inputs": "the model's dt and A ramps",
-            "shape": {**MAMBA2_SSD, "dtype": "bfloat16 (dt, A float32)"},
-            "smem_bytes": k3._library().ssd_scan_smem_bytes(Q, P, N),
-            "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms, **k3_bound(B, T, H, G, P, N, Q)}
+    return {"tensor_core": tc, "simt_float32": simt,
+            "tolerance": "bfloat16 (tensor core): each row <= "
+                         f"{ROW_REL_TOL} of the float32 plain version and "
+                         f"<= {K3_TC_ERR_FACTOR} x the SIMT variant's "
+                         "error; float32 (SIMT): rtol = atol = 1e-4",
+            "inputs": "the model's dt and A ramps"}
 
 
 def k3_ring(gen) -> dict:
@@ -1652,21 +1712,30 @@ def main() -> int:
     pre = phase_prefill(card)
     phase_lm_parity(card, "mamba2-2.7b", 4, (0, 4), "mamba2_parity")
     pre_m = phase_prefill(card, "mamba2-2.7b", 0,
-                          {"tensor_core": 0, "simt": 64}, "mamba2_prefill")
-    # the entry's launches and times are the tensor-core variant's (the
-    # zamba2 prefill's); the SIMT variant's (mamba2's) stand beside them
+                          {"tensor_core": 64, "simt": 0}, "mamba2_prefill")
+    # the entry's launches and times are the tensor-core variant's at the
+    # zamba2 prefill (N 64); its N 128 instantiation's at mamba2's shape
+    # and the SIMT variant's there (float32, off both prefills) stand
+    # beside them
     k3_entry = kernel_entry("ssd_scan", "ssd_scan.cu",
                             "src/repro/kernels/ssd_scan.py:66",
                             pre["k3_launches"], k3)
-    simt = k3["simt_mamba2"]
+    at_mamba2 = k3["mamba2_shape"]
+    timing = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+    tc_m, simt = at_mamba2["tensor_core"], at_mamba2["simt_float32"]
     k3_entry.update(
         launches_by_path={"zamba2-7b prefill": pre["k3_launches_by_variant"],
                           "mamba2-2.7b prefill":
                               pre_m["k3_launches_by_variant"]},
-        simt_at_mamba2_shape={"launches": pre_m["k3_launches"]}
-        | {k: simt[k] for k in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
-        | {"max_abs_err": simt["errors"]["float32"]["max_abs_err"]})
+        tc_at_mamba2_shape={
+            "launches": pre_m["k3_launches_by_variant"]["tensor_core"],
+            "max_abs_err": tc_m["errors"]["tc_max_abs_err"],
+            "library_ms": None} | {k: tc_m[k] for k in timing},
+        simt_at_mamba2_shape={
+            "launches": pre_m["k3_launches_by_variant"]["simt"],
+            "dtype": "float32",
+            "max_abs_err": simt["errors"]["max_abs_err"],
+            "library_ms": None} | {k: simt[k] for k in timing})
     # K1's entry is the fused kernel the planner launches; the standalone
     # reduction, which no main path launches, stands beside it
     k1_entry = kernel_entry("select_rows", "masked_select.cu",

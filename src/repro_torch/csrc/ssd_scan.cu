@@ -21,10 +21,12 @@
 // N and the chunk alone, never by a failure:
 //
 // * ssd_scan_fwd_tc, the tensor-core kernel, for bf16 x / B / C with
-//   P = N = 64 and Q in {64, 128}.  TMA reads x, B and C, so their bases
-//   and (B, T, head or group) strides must be positive multiples of 16
-//   bytes; the wrapper raises on any other layout.
-// * ssd_scan_fwd, the SIMT kernel, for float32 and every other shape.
+//   P 64, N 64 or 128 and Q in {64, 128}: zamba2-7b's calls (N 64) and
+//   mamba2-2.7b's (N 128).  TMA reads x, B and C, so their bases and (B,
+//   T, head or group) strides must be positive multiples of 16 bytes; the
+//   wrapper raises on any other layout.
+// * ssd_scan_fwd, the SIMT kernel, for float32 and every other shape
+//   (N 256, P 128, other chunks).
 //
 // Tensor-core design: chunk-parallel, one block per (head, chunk, batch),
 // with the state handed on from chunk to chunk through the L2 (a chained
@@ -32,31 +34,33 @@
 // same work in three passes (chunk states; the state pass over chunks;
 // the outputs), which at zamba2 moves the 58.7 MB float32 state
 // workspace four times; on an H100 that schedule took 1.47 x this
-// kernel's device time (PERF.md).  One block, two warpgroups of 64 rows t:
+// kernel's device time (PERF.md).  One block, two warpgroups of 64 rows t;
+// one template over N, whose C, B, W and state tiles are N / 64 boxes of
+// 64 columns:
 //
-// 1. TMA loads the chunk's C, B and x tiles ([Q][64] bf16, 128-byte
+// 1. TMA loads the chunk's C, B and x tiles ([Q][64] bf16 boxes, 128-byte
 //    swizzle) while a warp scan takes acum; W = B dt exp(total - acum) is
 //    written over the B tile's layout as bf16 hi and lo tiles.
-// 2. Warpgroup 0 takes S_c = x^T W (64 x 64, depth Q) on wgmma, both
-//    operands MN-major from shared memory; waits on its head's counter for
-//    s_in[c], which chunk c - 1 published (0 for the first chunk); writes
-//    s_in[c + 1] = s_in[c] exp(total) + S_c (the reference's expression,
-//    in that order, no FMA contraction) to the next slot of the head's
-//    ring (Params::ring below says why two slots are enough) and
-//    publishes it
-//    (stores, a barrier, then one st.release of the counter: the CUTLASS
-//    semaphore's pattern); then s_in[c] as bf16 hi, lo tiles.  The ring
-//    and the counters are the whole workspace: 32 KB and 4 bytes per
-//    (batch, head), whatever T.
+// 2. Warpgroup 0 takes S_c = x^T W (64 x N, depth Q; one 64 x 64
+//    accumulator per box) on wgmma, both operands MN-major from shared
+//    memory; waits on its head's counter for s_in[c], which chunk c - 1
+//    published (0 for the first chunk); writes s_in[c + 1] = s_in[c]
+//    exp(total) + S_c (the reference's expression, in that order, no FMA
+//    contraction) to the next slot of the head's ring (Params::ring below
+//    says why two slots are enough) and publishes it (stores, a barrier,
+//    then one st.release of the counter: the CUTLASS semaphore's
+//    pattern); then s_in[c] as bf16 hi, lo tiles.  The ring
+//    and the counters are the whole workspace: 2 x 64 x N x 4 bytes (32 KB
+//    at N 64) and 4 bytes per (batch, head), whatever T.
 // 3. Each warpgroup, for its rows t and each 64-key half at or below the
-//    diagonal: the scores C B^T (wgmma), times the decay and dt_u in
-//    registers, packed as the A fragment of y += S x (wgmma, A from
+//    diagonal: the scores C B^T (wgmma, depth N), times the decay and dt_u
+//    in registers, packed as the A fragment of y += S x (wgmma, A from
 //    registers, x the MN-major B operand).  Warpgroup 1 does this while
 //    warpgroup 0 is on the chain.  Halves wholly above the diagonal are
 //    skipped.
-// 4. y += exp(acum[t]) C s_in[c]^T (wgmma, K-major operands), and y goes
-//    through shared memory (swizzled, no bank conflicts) to 128-byte row
-//    stores.
+// 4. y += exp(acum[t]) C s_in[c]^T (wgmma, K-major operands, depth N), and
+//    y goes through shared memory (swizzled, no bank conflicts) to
+//    128-byte row stores.
 //
 // The chain cannot deadlock, whatever order the card starts blocks in:
 // a block does not take its (head, chunk, batch) from its block index but
@@ -82,7 +86,7 @@
 // chunk axis of its grid.  Here one block owns one (batch, head) and up to
 // 64 columns of P (a second block takes P 65 .. 128), loops over the
 // chunks itself, and keeps its columns of the state in shared memory for
-// the whole sequence (32 KB at N 128).  Each chunk stages x, dt and the
+// the whole sequence (64 KB at N 256).  Each chunk stages x, dt and the
 // cumsum, then C and B 32 state columns at a time: each such N tile adds
 // its part of the scores C B^T, adds C state^T to y's state term, and
 // then updates its own columns of the state, which no other tile reads.
@@ -93,9 +97,9 @@
 // to 128, P and N multiples of 4 (N up to 256).  The decay is selected,
 // not multiplied, as above.  B and C are read by group (head h reads
 // group h / (H / G)) at the strides given, so the head repeat of the
-// reference wrapper is never written.  At batch 1 it has only 80 to 112
-// blocks for 132 SMs, one chunk after another in each (PERF.md has its
-// time).  The kernels allocate nothing and never synchronise; the C entry
+// reference wrapper is never written.  At batch 1 it has only H blocks
+// for 132 SMs, one chunk after another in each (PERF.md has its time at
+// mamba2-2.7b's shape in float32).  The kernels allocate nothing and never synchronise; the C entry
 // points return cudaGetLastError().
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links -lcuda
@@ -377,15 +381,14 @@ int launch(const Params& p, cudaStream_t stream) {
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core variant (bf16, P = N = 64, Q in {64, 128})
+// Tensor-core variant (bf16, P 64, N 64 or 128, Q in {64, 128})
 
 namespace tc {
 
 #include "hopper.cuh"
 
-constexpr int kDim = 64;                      // P and N: one TMA box
-constexpr int kStateTile = kDim * kRowBytes;  // one [64][64] bf16 tile
-constexpr int kStateElems = kDim * kDim;
+constexpr int kDim = 64;                      // P: one TMA box
+constexpr int kStateTile = kDim * kRowBytes;  // one [64][64] bf16 box
 constexpr unsigned kFull = 0xffffffffu;
 struct Params {
   const float* dt;
@@ -409,15 +412,19 @@ struct Params {
 };
 
 // shared memory of the kernel: bf16 tiles (1024-aligned for the swizzle)
-// C, B, x, W hi (then y), W lo, s_in hi, s_in lo; then acum2[Q], dt[Q],
-// fac[Q], warp sums[8], the mbarrier and the block's ticket
-template <int Q>
+// C, B, x, W hi (then y), W lo, s_in hi, s_in lo, each of C, B, W and
+// s_in as N / 64 boxes of 64 columns one after another; then acum2[Q],
+// dt[Q], fac[Q], warp sums[8], the mbarrier and the block's ticket
+template <int Q, int N>
 struct Layout {
-  static constexpr int kTile = Q * kRowBytes;  // one [Q][64] bf16 tile
-  static constexpr int kBytes =
-      1024 + 5 * kTile + 2 * kStateTile + 4 * (3 * Q + 8) + 16;
+  static constexpr int kBoxes = N / kBoxCols;
+  static constexpr int kTile = Q * kRowBytes;  // one [Q][64] bf16 box
+  static constexpr int kBytes = 1024 + (4 * kBoxes + 1) * kTile +
+                                2 * kBoxes * kStateTile + 4 * (3 * Q + 8) +
+                                16;
 };
-static_assert(Layout<128>::kBytes <= 232448 / 2, "two blocks per SM");
+static_assert(Layout<128, 64>::kBytes <= 232448 / 2, "two blocks per SM");
+static_assert(Layout<128, 128>::kBytes <= 232448, "one block per SM");
 
 // the generic proxy's shared-memory writes become visible to wgmma
 __device__ __forceinline__ void fence_async_smem() {
@@ -546,7 +553,9 @@ __device__ __forceinline__ void wg0_sync() {
 
 // One block per (head, chunk, batch), drawn from a ticket as the block
 // starts, heads fastest, so that a chunk's predecessor has started
-// before it; one warpgroup per 64 rows t.
+// before it; one warpgroup per 64 rows t.  Every product over N walks
+// its 64-column boxes: the state's as one 64 x 64 accumulator per box,
+// the others as K steps of 16 columns, four to a box.
 //   1. all threads: acum, W = B dt exp(total - acum) (bf16 hi, lo);
 //   2. warpgroup 0: S_c = x^T W; waits for s_in[c] (the head's counter
 //      at c, published by chunk c - 1), publishes s_in[c + 1] = s_in[c]
@@ -556,23 +565,29 @@ __device__ __forceinline__ void wg0_sync() {
 //   3. warpgroup 1 meanwhile: its rows' y_intra over both 64-key halves;
 //   4. both: y += exp(acum[t]) C s_in[c]^T; y through shared memory to
 //      128-byte row stores.
-template <int Q>
-__global__ void __launch_bounds__(2 * Q, 2)
+// At N 64 two blocks share an SM (at most 128 registers a thread); at N
+// 128 the block takes 178.5 KB of shared memory at Q 128, so one does,
+// and the state's 64 accumulators and 64 loaded floats a thread of
+// warpgroup 0 fit the 255 registers that leaves.
+template <int Q, int N>
+__global__ void __launch_bounds__(2 * Q, N == kDim ? 2 : 1)
 ssd_scan_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
                    const __grid_constant__ CUtensorMap tm_b,
                    const __grid_constant__ CUtensorMap tm_c,
                    const Params p) {
-  using L = Layout<Q>;
+  using L = Layout<Q, N>;
+  constexpr int NB = L::kBoxes;
+  constexpr int kStateElems = kDim * N;  // one ring slot
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sc = (raw + 1023u) & ~1023u;
   uint8_t* base = smem_raw + (sc - raw);
-  const uint32_t sb = sc + L::kTile, sx = sb + L::kTile,
-                 swh = sx + L::kTile, swl = swh + L::kTile,
-                 shi = swl + L::kTile, slo = shi + kStateTile;
-  uint8_t* ybuf = base + 3 * L::kTile;  // W hi, once S_c is taken
-  float* acum2 = reinterpret_cast<float*>(base + 5 * L::kTile +
-                                          2 * kStateTile);  // [Q], log2
+  const uint32_t sb = sc + NB * L::kTile, sx = sb + NB * L::kTile,
+                 swh = sx + L::kTile, swl = swh + NB * L::kTile,
+                 shi = swl + NB * L::kTile, slo = shi + NB * kStateTile;
+  uint8_t* ybuf = base + (2 * NB + 1) * L::kTile;  // W hi, once S_c is taken
+  float* acum2 = reinterpret_cast<float*>(
+      base + (4 * NB + 1) * L::kTile + 2 * NB * kStateTile);  // [Q], log2
   float* dts = acum2 + Q;                                   // [Q]
   float* fac = dts + Q;                                     // [Q]
   float* warp_sum = fac + Q;                                // [8]
@@ -590,9 +605,12 @@ ssd_scan_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
             b = *ticket / (p.H * p.nc);
   if (tid == 0) {
     const int g = h / (p.H / p.G);
-    mbar_expect_tx(bar, 3 * L::kTile);
-    tma_load(sc, &tm_c, bar, 0, g, c * Q, b);
-    tma_load(sb, &tm_b, bar, 0, g, c * Q, b);
+    mbar_expect_tx(bar, (2 * NB + 1) * L::kTile);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load(sc + nb * L::kTile, &tm_c, bar, nb * kBoxCols, g, c * Q, b);
+      tma_load(sb + nb * L::kTile, &tm_b, bar, nb * kBoxCols, g, c * Q, b);
+    }
     tma_load(sx, &tm_x, bar, 0, h, c * Q, b);
   }
   float dtv;
@@ -609,24 +627,29 @@ ssd_scan_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
   __syncthreads();
   mbar_wait(bar, 0);
 
-  // W over the B tile's (swizzled) layout: a 128-byte row is one token,
-  // whatever the order of its 16-byte chunks
+  // W over the B tile's (swizzled) layout, box by box: a 128-byte row of
+  // a box is one token, whatever the order of its 16-byte chunks
   for (int e = tid; e < Q * 8; e += 2 * Q) {
-    const uint4 raw8 = *reinterpret_cast<const uint4*>(base + L::kTile +
-                                                       e * 16);
-    const float w = fac[e >> 3];
-    const __nv_bfloat162* pr = reinterpret_cast<const __nv_bfloat162*>(&raw8);
-    float v[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(pr[i]);
-      v[2 * i] = f.x * w;
-      v[2 * i + 1] = f.y * w;
+    for (int nb = 0; nb < NB; ++nb) {
+      const int off = nb * L::kTile + e * 16;
+      const uint4 raw8 =
+          *reinterpret_cast<const uint4*>(base + NB * L::kTile + off);
+      const float w = fac[e >> 3];
+      const __nv_bfloat162* pr =
+          reinterpret_cast<const __nv_bfloat162*>(&raw8);
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(pr[i]);
+        v[2 * i] = f.x * w;
+        v[2 * i + 1] = f.y * w;
+      }
+      uint4 hi, lo;
+      split8(v, hi, lo);
+      *reinterpret_cast<uint4*>(base + (2 * NB + 1) * L::kTile + off) = hi;
+      *reinterpret_cast<uint4*>(base + (3 * NB + 1) * L::kTile + off) = lo;
     }
-    uint4 hi, lo;
-    split8(v, hi, lo);
-    *reinterpret_cast<uint4*>(base + 3 * L::kTile + e * 16) = hi;
-    *reinterpret_cast<uint4*>(base + 4 * L::kTile + e * 16) = lo;
   }
   fence_async_smem();
   __syncthreads();
@@ -639,71 +662,95 @@ ssd_scan_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
   const long long bh = static_cast<long long>(b) * p.H + h;
 
   if (wg == 0) {
-    float d[32];
+    float d[NB][32];  // S_c, one 64 x 64 accumulator per box of N
 #pragma unroll
-    for (int i = 0; i < 32; ++i) d[i] = 0.f;
-    fence_regs(d);
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) d[nb][i] = 0.f;
+      fence_regs(d[nb]);
+    }
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < Q / 16; ++kk) {
       const uint32_t k_off = kk * 16 * kRowBytes;  // 16 tokens
       const uint64_t da = sw128_desc(sx + k_off, kMNMajor);
-      wgmma_ss<1, 1>(d, da, sw128_desc(swh + k_off, kMNMajor), kk > 0);
-      wgmma_ss<1, 1>(d, da, sw128_desc(swl + k_off, kMNMajor), 1);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const uint32_t w_off = nb * L::kTile + k_off;
+        wgmma_ss<1, 1>(d[nb], da, sw128_desc(swh + w_off, kMNMajor), kk > 0);
+        wgmma_ss<1, 1>(d[nb], da, sw128_desc(swl + w_off, kMNMajor), 1);
+      }
     }
     wg_commit();
     wg_wait_all();
-    fence_regs(d);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(d[nb]);
 
-    // d[4 jn + e]: p = ra or rb (e >> 1), n = 8 jn + 2 t4 + (e & 1).
-    // s_in[c] (0 for the first chunk) in the same layout, all loads in
-    // flight at once; s_in[c + 1] = s_in[c] exp(total) + S_c to the
-    // ring, then the counter publishes it; only then s_in[c] as bf16 hi,
-    // lo tiles [p][n] for C s_in^T (K-major, 128-byte swizzle: the pair
-    // (n, n + 1) in chunk jn ^ (p & 7) of row p), so that the hand-off
-    // waits for nothing else and the packed pairs are never live with d
-    float v[32];
+    // d[nb][4 jn + e]: p = ra or rb (e >> 1), n = 64 nb + 8 jn + 2 t4 +
+    // (e & 1).  s_in[c] (0 for the first chunk) in the same layout, all
+    // loads in flight at once; s_in[c + 1] = s_in[c] exp(total) + S_c to
+    // the ring, then the counter publishes it; only then s_in[c] as bf16
+    // hi, lo tiles [p][n], box by box, for C s_in^T (K-major, 128-byte
+    // swizzle: the pair (n, n + 1) in chunk jn ^ (p & 7) of row p of box
+    // nb), so that the hand-off waits for nothing else and the packed
+    // pairs are never live with d
+    float v[NB][32];
     if (c > 0) {
       if (tid == 0) flag_wait(p.flags + bh, c);
       wg0_sync();
       const float* src =
           p.states + (bh * p.ring + c % p.ring) * kStateElems;
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        const int row = (i & 2) ? rb : ra;
-        const float2 a = __ldcg(reinterpret_cast<const float2*>(
-            src + row * kDim + 8 * (i >> 2) + 2 * t4));
-        v[i] = a.x;
-        v[i + 1] = a.y;
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int row = (i & 2) ? rb : ra;
+          const float2 a = __ldcg(reinterpret_cast<const float2*>(
+              src + row * N + nb * kBoxCols + 8 * (i >> 2) + 2 * t4));
+          v[nb][i] = a.x;
+          v[nb][i + 1] = a.y;
+        }
       }
     } else {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) v[i] = 0.f;
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) v[nb][i] = 0.f;
+      }
     }
     if (c + 1 < p.nc) {
       const float decay = expf(total);
       float* dst =
           p.states + (bh * p.ring + (c + 1) % p.ring) * kStateElems;
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        const int row = (i & 2) ? rb : ra;
-        __stcg(reinterpret_cast<float2*>(dst + row * kDim + 8 * (i >> 2) +
-                                         2 * t4),
-               make_float2(__fadd_rn(__fmul_rn(v[i], decay), d[i]),
-                           __fadd_rn(__fmul_rn(v[i + 1], decay), d[i + 1])));
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int row = (i & 2) ? rb : ra;
+          __stcg(reinterpret_cast<float2*>(dst + row * N + nb * kBoxCols +
+                                           8 * (i >> 2) + 2 * t4),
+                 make_float2(
+                     __fadd_rn(__fmul_rn(v[nb][i], decay), d[nb][i]),
+                     __fadd_rn(__fmul_rn(v[nb][i + 1], decay),
+                               d[nb][i + 1])));
+        }
       }
       wg0_sync();
       if (tid == 0) flag_release(p.flags + bh, c + 1);
     }
+    uint8_t* s_tiles = base + (4 * NB + 1) * L::kTile;
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int row = (i & 2) ? rb : ra, jn = i >> 2;
-      uint32_t hi, lo;
-      split2(v[i], v[i + 1], hi, lo);
-      const int off = row * kRowBytes + ((jn ^ (row & 7)) << 4) + 4 * t4;
-      *reinterpret_cast<uint32_t*>(base + 5 * L::kTile + off) = hi;
-      *reinterpret_cast<uint32_t*>(base + 5 * L::kTile + kStateTile + off) =
-          lo;
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int row = (i & 2) ? rb : ra, jn = i >> 2;
+        uint32_t hi, lo;
+        split2(v[nb][i], v[nb][i + 1], hi, lo);
+        const int off = nb * kStateTile + row * kRowBytes +
+                        ((jn ^ (row & 7)) << 4) + 4 * t4;
+        *reinterpret_cast<uint32_t*>(s_tiles + off) = hi;
+        *reinterpret_cast<uint32_t*>(s_tiles + NB * kStateTile + off) = lo;
+      }
     }
     fence_async_smem();
   }
@@ -721,10 +768,12 @@ ssd_scan_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
     fence_regs(s);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kDim / 16; ++kk)
-      wgmma_ss<0, 0>(s, sw128_desc(c_rows + kk * 32, kKMajor),
-                     sw128_desc(sb + hf * 64 * kRowBytes + kk * 32, kKMajor),
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t k_off = (kk >> 2) * L::kTile + (kk & 3) * 32;
+      wgmma_ss<0, 0>(s, sw128_desc(c_rows + k_off, kKMajor),
+                     sw128_desc(sb + hf * 64 * kRowBytes + k_off, kKMajor),
                      kk > 0);
+    }
     wg_commit();
     wg_wait_all();
     fence_regs(s);
@@ -770,10 +819,13 @@ ssd_scan_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
     fence_regs(z);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kDim / 16; ++kk) {
-      const uint64_t da = sw128_desc(c_rows + kk * 32, kKMajor);
-      wgmma_ss<0, 0>(z, da, sw128_desc(shi + kk * 32, kKMajor), kk > 0);
-      wgmma_ss<0, 0>(z, da, sw128_desc(slo + kk * 32, kKMajor), 1);
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t col = (kk & 3) * 32;  // 16 columns inside box kk / 4
+      const uint64_t da =
+          sw128_desc(c_rows + (kk >> 2) * L::kTile + col, kKMajor);
+      const uint32_t s_off = (kk >> 2) * kStateTile + col;
+      wgmma_ss<0, 0>(z, da, sw128_desc(shi + s_off, kKMajor), kk > 0);
+      wgmma_ss<0, 0>(z, da, sw128_desc(slo + s_off, kKMajor), 1);
     }
     wg_commit();
     wg_wait_all();
@@ -810,17 +862,17 @@ ssd_scan_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-template <int Q>
+template <int Q, int N>
 int launch(const CUtensorMap& mx, const CUtensorMap& mb,
            const CUtensorMap& mc, const Params& p, int B,
            cudaStream_t stream) {
-  constexpr int bytes = Layout<Q>::kBytes;
+  constexpr int bytes = Layout<Q, N>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel_tc<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_kernel_tc<Q, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.H, p.nc, B);  // one block per ticket
-  ssd_scan_kernel_tc<Q><<<grid, 2 * Q, bytes, stream>>>(mx, mb, mc, p);
+  ssd_scan_kernel_tc<Q, N><<<grid, 2 * Q, bytes, stream>>>(mx, mb, mc, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -860,10 +912,10 @@ int ssd_scan_fwd(int dtype, const void* x, const void* dt, const void* A,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core variant: bf16 x, B, C and y; P = N = 64; Q 64 or 128
-// dividing T; H a multiple of G; bases and (B, T, head or group) strides of
-// x, B and C positive multiples of 16 bytes (the wrapper checks all of it
-// first).  dt (B, T, H) float32 at the given strides, A (H,) contiguous,
+// The tensor-core variant: bf16 x, B, C and y; P 64; N 64 or 128; Q 64
+// or 128 dividing T; H a multiple of G; bases and (B, T, head or group)
+// strides of x, B and C positive multiples of 16 bytes (the wrapper
+// checks all of it first).  dt (B, T, H) float32 at the given strides, A (H,) contiguous,
 // y (B, T, H, P) contiguous; states (B, H, ring, P, N) float32 (the
 // ring, ring >= 2) and flags (B, H) int32 (one counter per head)
 // workspaces, the flags followed by one more int32, the ticket counter,
@@ -880,13 +932,14 @@ int ssd_scan_fwd_tc(const void* x, const void* dt, const void* A,
                     void* stream) {
   if (B <= 0 || T <= 0) return 0;
   const long long blocks = static_cast<long long>(B) * H * (T / Q);
-  if (P != tc::kDim || N != tc::kDim || (Q != 64 && Q != 128) || T % Q ||
-      T / Q > 65535 || G < 1 || H % G || blocks >= (1LL << 31) || ring < 2)
+  if (P != tc::kDim || (N != 64 && N != 128) || (Q != 64 && Q != 128) ||
+      T % Q || T / Q > 65535 || G < 1 || H % G || blocks >= (1LL << 31) ||
+      ring < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mx, mb, mc;
   if (!tc::encode(&mx, x, tc::kDim, H, T, B, sxh, sxt, sxb, Q) ||
-      !tc::encode(&mb, Bm, tc::kDim, G, T, B, sbg, sbt, sbb, Q) ||
-      !tc::encode(&mc, Cm, tc::kDim, G, T, B, scg, sct, scb, Q))
+      !tc::encode(&mb, Bm, N, G, T, B, sbg, sbt, sbb, Q) ||
+      !tc::encode(&mc, Cm, N, G, T, B, scg, sct, scb, Q))
     return static_cast<int>(cudaErrorNotSupported);
   const tc::Params p{static_cast<const float*>(dt),
                      static_cast<const float*>(A),
@@ -896,8 +949,11 @@ int ssd_scan_fwd_tc(const void* x, const void* dt, const void* A,
                          static_cast<long long>(B) * H,
                      y, T, H, G, T / Q, sdb, sdt, sdh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return Q == 128 ? tc::launch<128>(mx, mb, mc, p, B, s)
-                  : tc::launch<64>(mx, mb, mc, p, B, s);
+  if (N == 64)
+    return Q == 128 ? tc::launch<128, 64>(mx, mb, mc, p, B, s)
+                    : tc::launch<64, 64>(mx, mb, mc, p, B, s);
+  return Q == 128 ? tc::launch<128, 128>(mx, mb, mc, p, B, s)
+                  : tc::launch<64, 128>(mx, mb, mc, p, B, s);
 }
 
 }  // extern "C"

@@ -11,16 +11,17 @@ alone:
 * ``"tensor_core"`` (``ssd_scan_fwd_tc``: TMA, wgmma, one block per
   chunk and head, the state handed on from chunk to chunk through a ring
   of :data:`K3_RING` slots per (batch, head)) for bf16 x, B and C with P
-  and N in :data:`TC_DIMS` and the chunk in :data:`TC_CHUNKS`.  TMA reads
-  x, B and C, so their data pointers and (B, T, head or group) strides
-  must be positive multiples of 16 bytes: :func:`.tma.check_tma_layout`,
-  K2's rule too, raises on any other layout, and such a call never goes
-  to the other variant.  Its workspace, :func:`workspace_bytes`, does not
-  grow with T;
-* ``"simt"`` (``ssd_scan_fwd``) for float32 and every other shape, with
-  N tiled inside the block: its shared memory (``ssd_scan_smem_bytes`` of
-  the library) fits every chunk up to 128 with P and N multiples of 4 and
-  N up to 256.
+  in :data:`TC_P`, N in :data:`TC_N` and the chunk in :data:`TC_CHUNKS`:
+  the bf16 prefills of zamba2-7b (N 64) and mamba2-2.7b (N 128).  TMA
+  reads x, B and C, so their data pointers and (B, T, head or group)
+  strides must be positive multiples of 16 bytes:
+  :func:`.tma.check_tma_layout`, K2's rule too, raises on any other
+  layout, and such a call never goes to the other variant.  Its
+  workspace, :func:`workspace_bytes`, does not grow with T;
+* ``"simt"`` (``ssd_scan_fwd``) for float32 and every other shape (N
+  256, P 128, chunks outside :data:`TC_CHUNKS`), with N tiled inside the
+  block: its shared memory (``ssd_scan_smem_bytes`` of the library) fits
+  every chunk up to 128 with P and N multiples of 4 and N up to 256.
 
 Each variant counts its own launches (:func:`launch_counts`).
 """
@@ -38,8 +39,11 @@ from .tma import check_tma_layout
 MAX_SMEM_BYTES = 227 * 1024
 #: the longest chunk the kernel stages (its Q x Q score tile)
 MAX_CHUNK = 128
-#: P and N of the tensor-core kernel (one 64-column TMA box, one wgmma N)
-TC_DIMS = (64,)
+#: P of the tensor-core kernel (one 64-column TMA box, one wgmma N)
+TC_P = (64,)
+#: N of the tensor-core kernel (one or two 64-column boxes of C, B and
+#: the state)
+TC_N = (64, 128)
 #: chunks of the tensor-core kernel (one or two 64-row warpgroups)
 TC_CHUNKS = (64, 128)
 #: slots of the tensor-core kernel's state hand-off ring per (batch, head),
@@ -71,10 +75,10 @@ def reset_launch_count() -> None:
 def route(dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
     """The variant a call of ``dtype``, head width ``P``, state width
     ``N`` and chunk ``chunk`` (already cut to T) takes: ``"tensor_core"``
-    for bfloat16 with P and N in :data:`TC_DIMS` and the chunk in
-    :data:`TC_CHUNKS`, else ``"simt"``.  Nothing else (layout, T, heads,
-    groups) enters."""
-    if dtype == torch.bfloat16 and P in TC_DIMS and N in TC_DIMS \
+    for bfloat16 with P in :data:`TC_P`, N in :data:`TC_N` and the chunk
+    in :data:`TC_CHUNKS`, else ``"simt"``.  Nothing else (layout, T,
+    heads, groups) enters."""
+    if dtype == torch.bfloat16 and P in TC_P and N in TC_N \
             and chunk in TC_CHUNKS:
         return "tensor_core"
     return "simt"

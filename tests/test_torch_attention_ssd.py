@@ -308,8 +308,12 @@ def test_ssd_chunked_matches_kernel_on_ramps(T, chunk, dtype, P, N):
     (torch.bfloat16, 64, 64, 32, "simt"),        # T 32 cuts the chunk
     (torch.bfloat16, 64, 64, 100, "simt"),
     (torch.bfloat16, 128, 64, 128, "simt"),
-    (torch.bfloat16, 64, 128, 128, "simt"),
+    (torch.bfloat16, 64, 128, 128, "tensor_core"),   # mamba2-2.7b's call
     (torch.float16, 64, 64, 128, "simt"),
+    (torch.bfloat16, 64, 128, 64, "tensor_core"),
+    (torch.bfloat16, 64, 256, 128, "simt"),
+    (torch.bfloat16, 128, 128, 128, "simt"),
+    (torch.float32, 64, 128, 128, "simt"),
 ])
 def test_ssd_route_by_dtype_and_widths(dtype, P, N, chunk, variant):
     """K3's variant is a function of the dtype, P, N and the chunk alone."""
@@ -329,3 +333,12 @@ def test_ssd_workspace_does_not_grow_with_t():
     assert K3_RING == 2
     assert workspace_bytes(1, 112, 4096, 64, 64, 128) == 3_670_468
     assert workspace_bytes(32, 112, 32768, 64, 64, 128) <= 128 * 2 ** 20
+
+
+@pytest.mark.parametrize("T", [4096, 32768])
+def test_ssd_workspace_at_the_mamba2_cell(T):
+    """mamba2-2.7b's tensor-core call (B 1, H 80, P 64, N 128, chunk
+    128): two float32 (64, 128) slots and one counter per head, plus the
+    ticket, whatever T."""
+    assert workspace_bytes(1, 80, T, 64, 128, 128) == \
+        1 * 80 * 2 * 64 * 128 * 4 + 81 * 4 == 5_243_204

@@ -14,12 +14,12 @@ within 1e-2 relative L2 error (bf16 rounds the output and P to 2^-9, a
 fifth of that; a key tile dropped from a row of up to 4,096 keys costs
 at least sqrt(128 / 4096) = 0.18), and, at a reduced prefill shape,
 within twice the error of ``scaled_dot_product_attention``.  K3's
-tensor-core variant (bf16, P = N = 64) is held the same way to the
-float32 plain version, each (token, head) row within 1e-2, and within
-4 x the SIMT variant's error on the same inputs.  The SIMT K3 at state
-widths 128 and 256 (mamba2-2.7b's N and the widest the block fits) is
-held to the float32 plain version at 1e-4 in float32 and, in bf16, per
-row at 1e-2.  ``select_rows`` is held bitwise to ``select_rows_ref`` on
+tensor-core variant (bf16, P 64, N 64 and mamba2-2.7b's 128) is held
+the same way to the float32 plain version, each (token, head) row
+within 1e-2, and within 4 x the SIMT variant's error on the same inputs.
+The SIMT K3 at state widths 128 (in float32) and 256 (the widest the
+block fits) is held to the float32 plain version at 1e-4 in float32 and,
+in bf16, per row at 1e-2.  ``select_rows`` is held bitwise to ``select_rows_ref`` on
 the planner carries of ``tests/_select_rows_carries.py``, the knife's
 edge of the variance test on each side among them."""
 
@@ -188,16 +188,16 @@ def _ssd_inputs(card, B, T, H, G, P, N, dtype, seed=0, ramp=False):
     return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)
 
 
-def _xbc_views(card, T, H, dtype, pad=0, ramp=True):
+def _xbc_views(card, T, H, dtype, pad=0, ramp=True, N=64):
     """x, dt, A, B, C with x, B and C as the SSD layer passes them: views
-    into one (1, T, 64 H + 128 + pad) xBC tensor, P = N = 64, G 1."""
+    into one (1, T, 64 H + 2 N + pad) xBC tensor, P 64, G 1."""
     g = torch.Generator(device=card).manual_seed(4)
-    xbc = torch.randn((1, T, 64 * H + 128 + pad), generator=g,
+    xbc = torch.randn((1, T, 64 * H + 2 * N + pad), generator=g,
                       device=card).to(dtype)
-    x, Bm, Cm, _ = torch.split(xbc, [64 * H, 64, 64, pad], dim=-1)
-    _, dt, A, _, _ = _ssd_inputs(card, 1, T, H, 1, 64, 64, dtype, ramp=ramp)
-    return (x.reshape(1, T, H, 64), dt, A, Bm.reshape(1, T, 1, 64),
-            Cm.reshape(1, T, 1, 64))
+    x, Bm, Cm, _ = torch.split(xbc, [64 * H, N, N, pad], dim=-1)
+    _, dt, A, _, _ = _ssd_inputs(card, 1, T, H, 1, 64, N, dtype, ramp=ramp)
+    return (x.reshape(1, T, H, 64), dt, A, Bm.reshape(1, T, 1, N),
+            Cm.reshape(1, T, 1, N))
 
 
 @pytest.mark.parametrize("T,P,N,chunk,G,dtype", [
@@ -237,26 +237,36 @@ def test_k3_tensor_core_matches_float32_plain(card, T, H, G, chunk, ramp):
     assert _errors(got, want)[1] <= ROW_REL_TOL
 
 
-def test_k3_tensor_core_within_four_times_simt(card):
-    """Reduced prefill shape with the model's ramps (T 1024, H 32): the
-    tensor-core variant's max abs and worst row error against the float32
-    plain version are at most 4 x those of the SIMT variant on the same
-    bf16 inputs (the same function at chunk 32, where bf16 goes SIMT)."""
-    ins = _ssd_inputs(card, 1, 1024, 32, 1, 64, 64, torch.bfloat16, seed=6,
+@pytest.mark.parametrize("T,H,G,N,chunk", [
+    (1024, 32, 1, 64, 128),     # a reduced zamba2 prefill
+    (256, 8, 1, 128, 128),      # mamba2-2.7b's state width
+    (256, 8, 1, 128, 64),
+    (256, 8, 2, 128, 128),
+])
+def test_k3_tensor_core_within_four_times_simt(card, T, H, G, N, chunk):
+    """P 64 on the model's ramps: the tensor-core variant, every (token,
+    head) row within 1e-2 of the float32 plain version of the same bf16
+    inputs, and its max abs and worst row error at most 4 x those of the
+    SIMT variant on those inputs (the same function at chunk 32, where
+    bf16 goes SIMT)."""
+    ins = _ssd_inputs(card, 1, T, H, G, 64, N, torch.bfloat16, seed=6,
                       ramp=True)
     want = ssd_scan_plain(*(t.float() for t in ins))
     k3.reset_launch_count()
-    tc_abs, tc_row = _errors(k3.ssd_scan_fwd(*ins), want)
+    tc_abs, tc_row = _errors(k3.ssd_scan_fwd(*ins, chunk=chunk), want)
+    assert k3.launch_counts() == {"tensor_core": 1, "simt": 0}
     simt_abs, simt_row = _errors(k3.ssd_scan_fwd(*ins, chunk=32), want)
     assert k3.launch_counts() == {"tensor_core": 1, "simt": 1}
+    assert tc_row <= ROW_REL_TOL
     assert tc_abs <= 4 * simt_abs and tc_row <= 4 * simt_row, \
         (tc_abs, simt_abs, tc_row, simt_row)
 
 
-def test_k3_tensor_core_reads_xbc_views(card):
-    """x, B and C as column slices of the layer's xBC tensor: TMA reads
-    the strides, no copy is made."""
-    ins = _xbc_views(card, 512, 8, torch.bfloat16)
+@pytest.mark.parametrize("N", [64, 128])
+def test_k3_tensor_core_reads_xbc_views(card, N):
+    """x, B and C as column slices of the layer's xBC tensor (mamba2's
+    layout at N 128): TMA reads the strides, no copy is made."""
+    ins = _xbc_views(card, 512, 8, torch.bfloat16, N=N)
     assert not ins[0].is_contiguous()
     k3.reset_launch_count()
     got = k3.ssd_scan_fwd(*ins)
@@ -265,24 +275,29 @@ def test_k3_tensor_core_reads_xbc_views(card):
     assert _errors(got, want)[1] <= ROW_REL_TOL
 
 
-def test_k3_misaligned_bf16_raises(card):
-    """A bf16 call that TMA cannot read raises; it never goes to the SIMT
-    variant."""
-    x, dt, A, Bm, Cm = _ssd_inputs(card, 2, 128, 4, 1, 64, 64,
+@pytest.mark.parametrize("N", [64, 128])
+def test_k3_misaligned_bf16_raises(card, N):
+    """A bf16 call that TMA cannot read raises, at either state width of
+    the tensor-core variant; it never goes to the SIMT variant."""
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 2, 128, 4, 1, 64, N,
                                    torch.bfloat16)
     buf = torch.zeros(x.numel() + 1, device=card, dtype=torch.bfloat16)
     shifted = buf[1:].view(x.shape)             # one element off 16 bytes
+    assert k3.route(torch.bfloat16, 64, N, 128) == "tensor_core"
     k3.reset_launch_count()
     for bad in ((shifted, dt, A, Bm, Cm),
-                _xbc_views(card, 128, 8, torch.bfloat16, pad=4)):
+                _xbc_views(card, 128, 8, torch.bfloat16, pad=4, N=N)):
         with pytest.raises(ValueError, match="16 bytes"):
             k3.ssd_scan_fwd(*bad)
     assert k3.launch_count() == 0
 
 
-@pytest.mark.parametrize("N", [128, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k3_simt_wide_state_matches_plain(card, N, dtype):
+@pytest.mark.parametrize("dtype,N", [
+    (torch.float32, 128),       # mamba2-2.7b's state width in float32
+    (torch.float32, 256),
+    (torch.bfloat16, 256),      # bf16 N 128 takes the tensor cores
+])
+def test_k3_simt_wide_state_matches_plain(card, dtype, N):
     """P 64, chunk 128 (two chunks of T 256), H 8 on the model's ramps:
     the SIMT variant, which tiles N inside its block, against the float32
     plain version of the same inputs."""
@@ -297,11 +312,12 @@ def test_k3_simt_wide_state_matches_plain(card, N, dtype):
         assert _errors(got, want)[1] <= ROW_REL_TOL
 
 
-def test_k3_tensor_core_reuses_ring_slots(card):
+@pytest.mark.parametrize("N", [64, 128])
+def test_k3_tensor_core_reuses_ring_slots(card, N):
     """32 chunks per head (T 4096, H 4, G 1) on the ramps: each slot of
-    the two-slot hand-off ring is written 16 times; every row within 1e-2
-    of the float32 plain version."""
-    ins = _ssd_inputs(card, 1, 4096, 4, 1, 64, 64, torch.bfloat16, seed=8,
+    the two-slot hand-off ring, a float32 (64, N) state, is written 16
+    times; every row within 1e-2 of the float32 plain version."""
+    ins = _ssd_inputs(card, 1, 4096, 4, 1, 64, N, torch.bfloat16, seed=8,
                       ramp=True)
     k3.reset_launch_count()
     got = k3.ssd_scan_fwd(*ins, chunk=128)
