@@ -43,7 +43,19 @@ phases, one JSON line each, and exits non-zero if any fails:
    then the same for ``cluster_b(scale=2)`` against
    ``planner.tail.B2x.batch`` (1,385 moves);
 4. no hidden host sync: one chunk of cluster A under
-   ``torch.cuda.set_sync_debug_mode("error")``;
+   ``torch.cuda.set_sync_debug_mode("error")``; then ``cluster_b_warm``,
+   the warm path on a copy of cluster B: one planner (chunk 64) through
+   a first plan of 100 moves (a 28-move stash), pool growth with the
+   stash held, a device out and a drain, the device back in, a device
+   add, a foreign move, a pool create (64 PGs of the first pool's rule)
+   and a device class that renumbers the carry's ids, each followed by a
+   warm plan of 128 moves, then a plan to convergence; each warm call
+   equals a cold plan on the card of an exact copy of the state (moves,
+   ``sources_tried``); 2 rebuilds and 6 absorptions over the lifecycle,
+   each absorption on the path (structural or not) its delta calls for,
+   the foreign move's certificates kept, host syncs = chunks + re-pads +
+   non-structural absorptions, K1's ``select_rows`` once a step; the
+   absorb and rebuild seconds beside the cold plans' set-up seconds;
 5. kernel K2 (``flash_attention``) against its plain version over the
    reference sweep (T and Dh grid, f32 and bf16, GQA, window / softcap /
    causal variants), Dh 112 and 256, windows that skip whole key tiles,
@@ -90,7 +102,8 @@ phases, one JSON line each, and exits non-zero if any fails:
     peak memory and the profiled device-time shares of K3 (all of it the
     tensor-core kernel) and the rest, as in phase 8;
 11. the kernel table line (K1 once: ``select_rows``'s launches and
-    times, and the standalone reduction's beside them; K3 once: the
+    times, its launches by path (the cold cluster-B plan, the warm
+    lifecycle), and the standalone reduction's beside them; K3 once: the
     tensor-core variant's launches and times at the zamba2 prefill, and
     beside them its N 128 instantiation's and the SIMT variant's at
     mamba2's shape); the last line names the device.
@@ -119,6 +132,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -936,6 +950,235 @@ def phase_no_sync() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the warm path (warm start and delta absorption) at cluster B
+
+
+def exact_copy(state):
+    """A copy with the per-device bytes as they are (``copy()`` re-sums
+    them, which can differ in the last bit after moves and growth)."""
+    from repro_torch.core import ClusterState
+    return ClusterState.from_plain(state.to_plain())
+
+
+def traced_plan(planner, state, budget) -> tuple:
+    """One plan call under the tracer: (result, its registry deltas, its
+    trace records, wall seconds, the chunks' seconds, the seconds from the
+    plan's start to its first chunk: the absorb or the rebuild)."""
+    from repro_torch import obs
+    reg = obs.registry()
+    snap = reg.snapshot()
+    with obs.tracing() as tr:
+        t0 = time.perf_counter()
+        res = planner.plan(state, budget=budget, record_trajectory=True,
+                           record_free_space=False)
+        wall = time.perf_counter() - t0
+    recs = tr.records
+    d = reg.deltas_since(snap)
+    spans = [r for r in recs if r.get("ev") == "span"]
+    chunks = [r for r in spans if r["name"] == "batch.chunk"]
+    start = next(r["ts"] for r in spans if r["name"] == "planner.plan")
+    sync_s = ((min(r["ts"] for r in chunks) - start) / 1e6 if chunks
+              else None)
+    return (res, d, recs, wall, sum(r["dur"] for r in chunks) / 1e6,
+            sync_s)
+
+
+def drain(state, osd: int) -> int:
+    """Move each shard of ``osd``, in sorted (pg, slot) order, to the first
+    device that ``move_is_legal`` allows; returns the moves made."""
+    from repro_torch.core import Movement
+    n = 0
+    for pg, slot in sorted(state.shards_on[osd]):
+        for dst in state.devices:
+            if state.move_is_legal(pg, slot, dst.id):
+                state.apply(Movement(pg, slot, osd, dst.id,
+                                     state.shard_sizes[pg]))
+                n += 1
+                break
+    return n
+
+
+def phase_warm(card: str, base) -> dict:
+    """One planner on a copy of cluster B through nine steps: a first
+    plan that leaves a stash, then pool growth, a device out and a drain,
+    the device back in, a device add, a foreign move, a pool create and a
+    class that renumbers the carry's ids, each followed by a warm plan of
+    two whole chunks, and a last plan to convergence.  Each warm call is
+    held to a cold plan on the card of an exact copy of the state taken
+    just before it."""
+    from repro_torch.core import Device, Movement, Pool, place_pg
+    from repro_torch.core.equilibrium import EquilibriumConfig
+    from repro_torch.core.planner import create_planner
+    from repro_torch.kernels import select_move
+    state = base.copy()
+    chunk, first_budget = 64, 100
+    planner = create_planner("equilibrium_batch", device="cuda",
+                             chunk=chunk)
+    whole = 2 * chunk                   # two whole chunks: no stash left
+    largest = max(state.pools.values(), key=lambda p: p.stored_bytes)
+    first = state.pools[min(state.pools)]
+    util = state.utilization()
+    out_osd = state.devices[int(np.argmax(util))].id
+    d0 = state.devices[0]
+    info: dict = {}
+
+    def grow(s):
+        s.grow_pool(largest.id, 0.02 * largest.stored_bytes)
+
+    def out(s):
+        s.mark_out(out_osd)
+        info["drained"] = drain(s, out_osd)
+
+    def back_in(s):
+        s.mark_out(out_osd, out=False)
+
+    def add(cls, host):
+        def fn(s):
+            s.add_device(Device(id=1 + max(d.id for d in s.devices),
+                                capacity=d0.capacity, device_class=cls,
+                                host=host, rack=d0.rack,
+                                datacenter=d0.datacenter))
+        return fn
+
+    def foreign(s):
+        moves = create_planner("equilibrium_faithful",
+                               cfg=EquilibriumConfig(max_moves=1)).plan(
+            exact_copy(s)).moves
+        check(len(moves) == 1, "foreign move: the faithful planner found "
+              "no move")
+        mv = moves[0]
+        s.apply(Movement(mv.pg, mv.slot, mv.src_osd, mv.dst_osd, mv.size))
+        info["foreign_move"] = [list(mv.pg), mv.slot, mv.src_osd,
+                                mv.dst_osd]
+
+    def create(s):
+        pid = 1 + max(s.pools)
+        pool = Pool(pid, "warm-created", 64, first.rule, ec_k=first.ec_k,
+                    stored_bytes=first.stored_bytes * 64 / first.pg_count)
+        s.add_pool(pool, {(pid, i): place_pg(s.devices, pool, i, seed=3)
+                          for i in range(64)},
+                   {(pid, i): pool.nominal_shard_size for i in range(64)})
+
+    first_class = sorted({d.device_class for d in state.devices})[0]
+    # (step, mutation, budget, the absorb path expected with no stash:
+    # True structural, False not, None no absorb)
+    steps = [("first_plan", None, first_budget, None),
+             ("pool_growth", grow, whole, True),
+             ("out_and_drain", out, whole, True),
+             ("back_in", back_in, whole, False),
+             ("device_add", add(d0.device_class, "warm-host-0"), whole,
+              False),
+             ("foreign_move", foreign, whole, True),
+             ("pool_create", create, whole, True),
+             ("renumbering_class", add("a" + first_class, "warm-host-1"),
+              whole, None),
+             ("to_convergence", None, None, None)]
+    rows = []
+    totals = {"rebuilds": 0, "absorb_runs": 0, "host_syncs": 0,
+              "chunks": 0, "repads": 0, "non_structural": 0,
+              "k1_launches": 0, "standalone_launches": 0}
+    impl = None
+    for name, mutate, budget, want_structural in steps:
+        stash_before = len(impl._stash) if impl is not None else 0
+        seen: list = []
+        if mutate is not None:
+            state.subscribe(seen.append)
+            mutate(state)
+            state.unsubscribe(seen.append)
+        snapshot = exact_copy(state)
+        select_move.reset_launch_count()
+        res, d, recs, wall, chunks_s, sync_s = traced_plan(planner, state,
+                                                           budget)
+        launches = select_move.launch_counts()
+        impl = planner._impl
+        cold, _, _, cold_wall, cold_chunks_s, cold_sync_s = traced_plan(
+            create_planner("equilibrium_batch", device="cuda", chunk=chunk),
+            snapshot, budget)
+        check(as_tuples(res.moves) == as_tuples(cold.moves)
+              and [r.sources_tried for r in res.records]
+              == [r.sources_tried for r in cold.records],
+              f"warm step {name}: moves or sources_tried differ from a "
+              f"cold plan of the same state")
+        points = [r["args"] for r in recs
+                  if r.get("name") == "batch.absorb"]
+        n_chunks = int(d.get("batch.chunks", 0))
+        repads = int(d.get("batch.repads", 0))
+        absorbed = int(d.get("absorb.runs", 0))
+        check(absorbed == len(points) <= 1,
+              f"warm step {name}: {absorbed} absorb runs")
+        point = points[0] if points else {}
+        structural = point.get("structural")
+        non_structural = int(structural is False)
+        check(res.stats["host_syncs"] == n_chunks + repads + non_structural,
+              f"warm step {name}: host syncs {res.stats['host_syncs']} != "
+              f"chunks {n_chunks} + re-pads {repads} + "
+              f"{non_structural} non-structural absorb")
+        check(launches == {"select_rows": chunk * n_chunks,
+                           "masked_select": 0},
+              f"warm step {name}: K1 launched {launches} over {n_chunks} "
+              f"chunks")
+        if want_structural is not None:
+            want = want_structural or stash_before > 0
+            check(absorbed == 1 and res.stats["rebuilds"] == 0
+                  and structural is want,
+                  f"warm step {name}: absorbed {absorbed}, rebuilds "
+                  f"{res.stats['rebuilds']}, structural {structural}, "
+                  f"expected {want} (stash before: {stash_before})")
+        else:
+            want = None
+            check(absorbed == 0 and res.stats["rebuilds"]
+                  == (0 if name == "to_convergence" else 1),
+                  f"warm step {name}: absorbed {absorbed}, rebuilds "
+                  f"{res.stats['rebuilds']}")
+        if name == "first_plan":
+            check(len(impl._stash) == -(-budget // chunk) * chunk - budget,
+                  f"first plan left {len(impl._stash)} stashed moves")
+        if name == "pool_growth":
+            check(stash_before > 0, "pool growth without a held stash")
+        if name == "out_and_drain":
+            check(info["drained"] > 0, "the drain moved nothing")
+        if name == "foreign_move":
+            check(point.get("kept_bounds") is True,
+                  "foreign move: certificates not kept")
+        totals["rebuilds"] += res.stats["rebuilds"]
+        totals["absorb_runs"] += absorbed
+        totals["host_syncs"] += res.stats["host_syncs"]
+        totals["chunks"] += n_chunks
+        totals["repads"] += repads
+        totals["non_structural"] += non_structural
+        totals["k1_launches"] += launches["select_rows"]
+        totals["standalone_launches"] += launches["masked_select"]
+        rows.append({
+            "step": name, "budget": budget,
+            "deltas": dict(sorted(Counter(type(x).__name__
+                                          for x in seen).items())),
+            "structural": structural, "expected_structural": want,
+            "kept_bounds": point.get("kept_bounds"),
+            "certificates_held": point.get("certificates_held"),
+            "certificates_kept": point.get("certificates_kept"),
+            "stash_before": stash_before, "stash_after": len(impl._stash),
+            "rebuilds": res.stats["rebuilds"], "moves": len(res.moves),
+            "chunks": n_chunks, "repads": repads,
+            "host_syncs": res.stats["host_syncs"],
+            "plan_s": wall, "chunks_s": chunks_s,
+            "absorb_s": wall - chunks_s, "sync_s": sync_s,
+            "cold_plan_s": cold_wall, "cold_chunks_s": cold_chunks_s,
+            "cold_setup_s": cold_wall - cold_chunks_s,
+            "cold_sync_s": cold_sync_s})
+    check(totals["rebuilds"] == 2, f"{totals['rebuilds']} rebuilds over "
+          f"the lifecycle, expected 2")
+    check(totals["absorb_runs"] == 6, f"{totals['absorb_runs']} absorb "
+          f"runs, expected 6")
+    check(totals["host_syncs"] == totals["chunks"] + totals["repads"]
+          + totals["non_structural"], "host syncs over the lifecycle")
+    out = {"card": card, "chunk": chunk, "out_osd": out_osd, **info,
+           **totals, "variance_before": base.utilization_variance(),
+           "variance_after": state.utilization_variance(), "steps": rows}
+    emit("cluster_b_warm", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 5-8: the LM prefill trunk (kernels K2 and K3, zamba2-7b)
 
 #: H100 SXM dense rates (NVIDIA data sheet, 700 W) by input type: the
@@ -1706,6 +1949,7 @@ def main() -> int:
     full = phase_full(card, built=built_b)
     phase_full(card, scale=2)
     phase_no_sync()
+    warm = phase_warm(card, built_b[0])
     k2 = phase_k2(card)
     k3 = phase_k3(card)
     phase_lm_parity(card)
@@ -1745,6 +1989,8 @@ def main() -> int:
     k1_entry.update(
         launches_by_kernel={"select_rows": full["k1_launches"],
                             "masked_select": 0},
+        launches_by_path={"cluster B cold plan": full["k1_launches"],
+                          "cluster B warm lifecycle": warm["k1_launches"]},
         standalone_masked_select={"launches": 0} | {k: alone[k] for k in (
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms")})

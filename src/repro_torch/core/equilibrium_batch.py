@@ -55,22 +55,35 @@ Indices that the reference leaves to JAX's clamped gathers and dropped
 scatters are clamped or masked explicitly here: torch wraps a negative
 index and a positive out-of-range one is a device-side assert.
 
-Not in this slice: delta absorption (:meth:`BatchPlanner.observe`
-returns False, so any external mutation rebuilds at the next plan), the
-legality cache, device telemetry and pipelined dispatch.
+* **Warm start and delta absorption.**  :class:`BatchPlanner` keeps the
+  carry between plans and subscribes to the bound state's delta stream;
+  an external mutation (pool growth, device add, device out or back in,
+  a foreign movement, a pool create) is absorbed into a freshly built
+  carry at the next plan, not rebuilt from a new mirror.  Every refreshed
+  tensor comes from the same host expressions :meth:`BatchPlanner._build`
+  uses (one constructor, ``_new_step``), so an absorbed carry equals a
+  fresh build's bitwise, apart from the row table's padding width and
+  source-bound certificates kept across a foreign movement.
+
+Not in this slice: the legality cache, device telemetry and pipelined
+dispatch.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from . import legality
-from .cluster import ClusterDelta, ClusterState, Movement
+from .cluster import (ClusterDelta, ClusterState, DeviceAddDelta,
+                      DeviceOutDelta, Movement, MovementDelta,
+                      PoolCreateDelta, PoolGrowthDelta)
 from .dense import DenseState
 from .equilibrium import EquilibriumConfig, MoveRecord
+from .legality import LegalityState
 from .tail import tail_flush, tail_record, tail_stats, tail_terminal
 from .. import obs as _obs
 from ..kernels.ops import bind_select_rows
@@ -307,7 +320,8 @@ class _Chunk:
         """Up to ``m`` steps; returns the packed int64 result the host
         fetches: the (m, 5) move block (row, src, dst, sources_tried,
         bound_skips, or -1 sentinels) flattened, then done, overflow,
-        max(nrows) and the pruned-source count."""
+        max(nrows) and the (n,) source-bound certificates as 0 / 1 (the
+        host keeps them for an absorption that may carry them over)."""
         dev = self.dev_iota.device
         done = torch.zeros(1, dtype=torch.bool, device=dev)
         overflow = torch.zeros(1, dtype=torch.bool, device=dev)
@@ -327,8 +341,7 @@ class _Chunk:
             done |= active & ~found
             overflow |= ovf
         return torch.cat([moves.flatten(), done.to(I64), overflow.to(I64),
-                          nrows.max().view(1),
-                          self.dyn["pruned"].sum().view(1)])
+                          nrows.max().view(1), self.dyn["pruned"].to(I64)])
 
 
 # ---------------------------------------------------------------------------
@@ -346,18 +359,37 @@ def _pack_rows(rows_on_dev, sh_size: np.ndarray, r_cap: int) -> np.ndarray:
 
 
 class BatchPlanner:
-    """Handle on the device-resident engine bound to one ClusterState.
+    """Warm-startable handle on the device-resident engine bound to one
+    ClusterState.
 
-    The carry stays alive between :meth:`plan` calls while the bound
-    state is unchanged (``state.mutation_epoch`` equals the epoch the
-    carry was synced at), so moves planned past one call's budget — the
-    overshoot stash, already applied in the carry — are emitted first by
-    the next call, and the emitted stream is the cold-start sequence.
-    Any other mutation of the state rebuilds the carry at the next plan.
+    The carry stays alive between :meth:`plan` calls.  Moves planned past
+    one call's budget — the overshoot stash, already applied in the carry
+    — are emitted first by the next call, so the emitted stream is the
+    cold-start sequence.  Staleness is the epoch compare
+    (``state.mutation_epoch`` against the epoch the carry was synced at);
+    what changed comes from the bound state's delta stream, to which the
+    planner subscribes weakly (:meth:`ClusterState.subscribe`):
+
+    * **Every known delta type is absorbed** at the next plan (``_absorb``)
+      into a new carry: pool growth and device out / back in refresh sizes,
+      utilizations, ideals and the in-mask on the host; a device add
+      extends the device axis with empty rows; a foreign movement and a
+      pool create re-read the assignment from the state (appending the new
+      pool's PGs and shard rows).  A held overshoot stash is discarded:
+      its moves exist only in the carry, never in the state, so re-reading
+      the assignment undoes them.  Each tensor is recomputed by the
+      expressions :meth:`_build` uses, so the continuation is the
+      cold-start sequence.
+    * **A full rebuild remains** for an unknown delta type, an unstamped or
+      conflicting delta, a backlog past :attr:`PENDING_CAP`, and a change
+      that would renumber the carry's dense ids (a device class or pool id
+      sorting before an existing one).
     """
 
     #: per-device row tables are padded in multiples of this many rows
     ROW_ALIGN = 8
+    #: pending-delta backlog above which the stream is dropped: rebuild
+    PENDING_CAP = 8192
 
     def __init__(self, state: ClusterState,
                  cfg: EquilibriumConfig | None = None, chunk: int = 64,
@@ -375,10 +407,32 @@ class BatchPlanner:
         self._epoch = -1                # state.mutation_epoch at last sync
         self._done = False
         self._pruned = 0                # pruned count at the last fetch
+        # the carry's certificates as the host last saw them (valid while
+        # no stash is held), and (used, pool counts) of the state at the
+        # synced epoch when any certificate was held: what a foreign
+        # movement's absorption compares against, with no fetch
+        self._pruned_mask: np.ndarray | None = None
+        self._synced_bounds: tuple[np.ndarray, np.ndarray] | None = None
         self._terminal_seconds = 0.0
         # moves the device already planned+applied in the carry but the
         # host has not yet emitted: (row, src, dst, tried, skipped, secs)
         self._stash: list[tuple[int, int, int, int, int, float]] = []
+        # deltas observed since the last sync, keyed by epoch; _invalid is
+        # set when the stream is unusable (overflow, unstamped, conflict)
+        self._pending: dict[int, ClusterDelta] = {}
+        self._invalid = False
+        self._absorbed_deltas = 0       # lifetime count (stats, tests)
+        # subscribe weakly: the state must not keep a dead planner alive
+        ref = weakref.ref(self)
+
+        def _deliver(delta, _ref=ref):
+            planner = _ref()
+            if planner is None:
+                return False            # prunes this subscription
+            planner._record_delta(delta)
+            return True
+
+        state.subscribe(_deliver)
 
     # -- dense-state lifecycle ----------------------------------------------
 
@@ -386,15 +440,86 @@ class BatchPlanner:
         a = self.ROW_ALIGN
         return max(a, -(-int(n) // a) * a)
 
+    def _tensor(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _acting(self, dense: DenseState) -> torch.Tensor:
+        """The compact acting table (n_pg, max pool size), -1 padded, read
+        from the state."""
+        state = self.state
+        n_slots = max(p.size for p in state.pools.values())
+        acting_np = np.full((len(dense.pgs), n_slots), -1, np.int64)
+        for pg, pgi in dense.pg_index.items():
+            osds = state.acting[pg]
+            acting_np[pgi, :len(osds)] = [state.idx(o) for o in osds]
+        return self._tensor(acting_np, I64)
+
+    def _device_const(self, dense: DenseState) -> dict:
+        t = self._tensor
+        return {"cap": t(dense.cap, F64), "dev_class": t(dense.dev_class, I64),
+                "dev_in": t(dense.dev_in, torch.bool),
+                "dev_domain": t(dense.dev_domain_arr, I64)}
+
+    def _shard_const(self, dense: DenseState) -> dict:
+        t = self._tensor
+        return {"sh_size": t(dense.sh_size.astype(np.float64), F64),
+                "sh_pg": t(dense.sh_pg, I64), "sh_pool": t(dense.sh_pool, I64),
+                "sh_class": t(dense.sh_class, I64),
+                "sh_level": t(dense.sh_level, I64),
+                "sh_slot": t(dense.sh_slot, I64),
+                "sh_sbase": t(dense.sh_sbase, I64),
+                "sh_scnt": t(dense.sh_scnt, I64)}
+
+    def _new_step(self, const: dict, dense: DenseState, *,
+                  acting: torch.Tensor, rows: np.ndarray, nrows: np.ndarray,
+                  pruned: np.ndarray) -> _Chunk:
+        """A new carry from host arrays: the one constructor a build and
+        an absorption share (fresh ``dyn``, ``const`` and ``scal`` dicts;
+        ``_Chunk`` derives k, the device iota and the capacity limit from
+        the device axis, and binds K1 to these dicts)."""
+        t, cfg = self._tensor, self.cfg
+        util, ideal, counts = dense.util, dense.ideal, dense.pool_counts
+        n_dev = util.shape[0]
+        const = {**const, "ideal": t(ideal, F64)}
+        dyn = {
+            "used": t(dense.used, F64), "util": t(util, F64),
+            # the moments are host float64 sums of the mirror (never
+            # re-summed on the device), as DenseState computes them
+            "us": t([float(util.sum())], F64),
+            "usq": t([float((util ** 2).sum())], F64),
+            "acting": acting,
+            "pool_counts": t(counts, F64),
+            "dst_ok": t(legality.dst_count_ok(counts, ideal, cfg.count_slack),
+                        torch.bool),
+            "rows_on": t(rows, I64), "nrows": t(nrows, I64),
+            "order": t(legality.fullest_first(util), I64),
+            "pruned": t(pruned, torch.bool),
+        }
+        # every scalar is a tensor on the carry's device: a CUDA division
+        # by a host scalar would multiply by its reciprocal instead
+        scal = {"slack": t(cfg.count_slack, F64),
+                "headroom": t(cfg.headroom, F64),
+                "min_dvar": t(cfg.min_variance_delta, F64),
+                "n_f": t(float(n_dev), F64)}     # the variance divisor
+        self._pruned_mask = pruned.copy()    # the CPU carry shares memory
+        self._pruned = int(pruned.sum())
+        return _Chunk(dyn, const, scal, k=min(cfg.k, max(n_dev, 1)),
+                      bounds=self.source_bounds)
+
     def _build(self) -> None:
         """Full rebuild of the device carry from ``self.state``."""
         _obs_registry().inc("batch.rebuilds")
         _obs.point("batch.rebuild", cat="batch",
-                   n_devices=self.state.n_devices)
-        state, cfg = self.state, self.cfg
+                   n_devices=self.state.n_devices,
+                   pending=len(self._pending), invalid=self._invalid)
+        state = self.state
         self._stash = []
         self._done = False
         self._pruned = 0
+        self._pruned_mask = None
+        self._synced_bounds = None
+        self._pending.clear()
+        self._invalid = False
         self._dense = None
         self._step = None
         self._epoch = state.mutation_epoch
@@ -404,68 +529,105 @@ class BatchPlanner:
         if not dense.shard_key:
             return
         self._dense = dense
-        dev = self.device
-
-        def t(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-
-        # compact acting table (n_pg, max pool size), padded with -1
-        n_slots = max(p.size for p in state.pools.values())
-        acting_np = np.full((len(dense.pgs), n_slots), -1, np.int64)
-        for pg, pgi in dense.pg_index.items():
-            osds = state.acting[pg]
-            acting_np[pgi, :len(osds)] = [state.idx(o) for o in osds]
-        const = {
-            "cap": t(dense.cap, F64), "dev_class": t(dense.dev_class, I64),
-            "dev_in": t(dense.dev_in, torch.bool),
-            "dev_domain": t(dense.dev_domain_arr, I64),
-            "sh_size": t(dense.sh_size.astype(np.float64), F64),
-            "sh_pg": t(dense.sh_pg, I64), "sh_pool": t(dense.sh_pool, I64),
-            "sh_class": t(dense.sh_class, I64),
-            "sh_level": t(dense.sh_level, I64),
-            "sh_slot": t(dense.sh_slot, I64),
-            "sh_sbase": t(dense.sh_sbase, I64),
-            "sh_scnt": t(dense.sh_scnt, I64),
-            "ideal": t(dense.ideal, F64),
-        }
         nrows_np = np.array([len(s) for s in dense.rows_on_dev], np.int64)
         r_cap = self._round_cap(
             max(self.row_capacity, int(nrows_np.max()))
             if self.row_capacity is not None
             else int(nrows_np.max()) + self.chunk)
-        dyn = {
-            "used": t(dense.used, F64), "util": t(dense.util, F64),
-            # the moments come from the host mirror, as float64 scalars
-            "us": t([dense.util_sum], F64), "usq": t([dense.util_sumsq], F64),
-            "acting": t(acting_np, I64),
-            "pool_counts": t(dense.pool_counts, F64),
-            "dst_ok": t(legality.dst_count_ok(dense.pool_counts, dense.ideal,
-                                              cfg.count_slack), torch.bool),
-            "rows_on": t(_pack_rows(dense.rows_on_dev, dense.sh_size, r_cap),
-                         I64),
-            "nrows": t(nrows_np, I64),
-            "order": t(legality.fullest_first(dense.util), I64),
-            "pruned": torch.zeros(dense.n_dev, dtype=torch.bool, device=dev),
-        }
-        # every scalar is a tensor on the carry's device: a CUDA division
-        # by a host scalar would multiply by its reciprocal instead
-        scal = {"slack": t(cfg.count_slack, F64),
-                "headroom": t(cfg.headroom, F64),
-                "min_dvar": t(cfg.min_variance_delta, F64),
-                "n_f": t(float(dense.n_dev), F64)}
-        self._step = _Chunk(dyn, const, scal,
-                            k=min(cfg.k, max(state.n_devices, 1)),
-                            bounds=self.source_bounds)
+        self._step = self._new_step(
+            {**self._device_const(dense), **self._shard_const(dense)}, dense,
+            acting=self._acting(dense),
+            rows=_pack_rows(dense.rows_on_dev, dense.sh_size, r_cap),
+            nrows=nrows_np, pruned=np.zeros(dense.n_dev, bool))
 
     @property
     def stale(self) -> bool:
         return self._epoch != self.state.mutation_epoch
 
+    # -- the delta stream ----------------------------------------------------
+
+    def _record_delta(self, delta: ClusterDelta) -> None:
+        if len(self._pending) >= self.PENDING_CAP:
+            self._invalid = True
+            self._pending.clear()
+            return
+        existing = self._pending.get(delta.epoch)
+        if existing is None:
+            self._pending[delta.epoch] = delta
+        elif existing != delta:
+            # two different claims about one epoch: the stream cannot be
+            # trusted — rebuild rather than absorb the wrong one
+            self._invalid = True
+
+    def _drop_synced_pending(self) -> None:
+        """Forget deltas at or below the synced epoch (the carry already
+        reflects them — typically the planner's own replayed moves)."""
+        self._pending = {e: d for e, d in self._pending.items()
+                         if e > self._epoch}
+
+    def _pending_run(self) -> list[ClusterDelta] | None:
+        """The contiguous delta run covering (synced epoch, state epoch],
+        or None if any mutation went unobserved."""
+        run = []
+        for epoch in range(self._epoch + 1, self.state.mutation_epoch + 1):
+            delta = self._pending.get(epoch)
+            if delta is None:
+                return None
+            run.append(delta)
+        return run
+
+    def _class_ids_stable(self) -> bool:
+        """Device classes are dense sorted ids in the carry; a new class
+        that sorts before an existing one would renumber ``sh_class``."""
+        new_id, _ = legality.device_class_ids(self.state.devices)
+        return all(new_id.get(c) == i
+                   for c, i in self._dense.class_id.items())
+
+    def _absorbable(self, run: list[ClusterDelta] | None) -> bool:
+        """Whether a pending run can be absorbed: the stream is whole and
+        trusted, a carry exists, and no delta renumbers the carry's dense
+        ids (a device class sorting before an existing one, a pool id at
+        or below the mirrored maximum, a pool whose rule names a class the
+        carry has no id for) or is of an unknown type."""
+        if run is None or self._invalid or self._step is None:
+            return False
+        dense = self._dense
+        max_pool = max(dense.pool_index, default=-1)
+        for delta in run:
+            if isinstance(delta, (PoolGrowthDelta, DeviceOutDelta,
+                                  MovementDelta)):
+                continue
+            if isinstance(delta, DeviceAddDelta):
+                if not self._class_ids_stable():
+                    return False
+                continue
+            if isinstance(delta, PoolCreateDelta):
+                pool = self.state.pools.get(delta.pool_id)
+                if pool is None or delta.pool_id <= max_pool:
+                    return False
+                if not all(s.device_class is None
+                           or s.device_class in dense.class_id
+                           for s in pool.rule.steps):
+                    return False
+                max_pool = delta.pool_id
+                continue
+            return False        # unknown delta type: rebuild
+        return True
+
     def observe(self, delta: ClusterDelta) -> bool:
-        """Delta absorption is not ported yet: every delta invalidates
-        the carry, and the next :meth:`plan` rebuilds it (the reference's
-        own conservative fallback, so sequences stay correct)."""
-        return False
+        """Record one cluster delta; True iff the planner can stay warm.
+
+        Deltas of the bound state arrive through the subscription, so a
+        caller needs this only for deltas made elsewhere (it deduplicates
+        by epoch).  False means the next :meth:`plan` rebuilds the carry;
+        True means it absorbs the pending deltas into it."""
+        if getattr(delta, "epoch", -1) < 0:
+            self._invalid = True        # unstamped: cannot be ordered
+        else:
+            self._record_delta(delta)
+        if self._epoch < 0 or not self.stale:
+            return True                 # nothing warm to invalidate (yet)
+        return self._absorbable(self._pending_run())
 
     def reset(self) -> None:
         """Drop all warm state; the next :meth:`plan` cold-starts."""
@@ -475,10 +637,230 @@ class BatchPlanner:
         self._stash = []
         self._done = False
         self._pruned = 0
+        self._pruned_mask = None
+        self._synced_bounds = None
+        self._pending.clear()
+        self._invalid = False
+
+    # -- absorption ----------------------------------------------------------
+
+    def _extend_pools(self, created: list[int]) -> None:
+        """Append created pools' PGs and shard rows to the host mirror's
+        tables in the (sorted pg, slot) order a cold build walks, with the
+        per-slot rule geometry of the same walk
+        (``legality.rule_slot_steps``); ``_absorbable`` has checked that
+        the new pool ids sort after every mirrored one."""
+        state, dense = self.state, self._dense
+        lvl_id = {l: i for i, l in enumerate(dense.levels)}
+        for pid in sorted(created):
+            pool = state.pools[pid]
+            dense.pool_index[pid] = len(dense.pool_index)
+            dense.n_pools = len(dense.pool_index)
+            geometry = legality.rule_slot_steps(pool.rule)
+            new = {"sh_pg": [], "sh_pool": [], "sh_level": [],
+                   "sh_class": [], "sh_step": [], "sh_slot": [],
+                   "sh_sbase": [], "sh_scnt": []}
+            for pg in sorted(state.pgs_of_pool[pid]):
+                dense.pg_index[pg] = len(dense.pg_index)
+                dense.pgs.append(pg)
+                for slot in range(pool.size):
+                    dense.row_of[(pg, slot)] = len(dense.shard_key)
+                    dense.shard_key.append((pg, slot))
+                    si, base, scnt, domain, dev_class = geometry[slot]
+                    new["sh_pg"].append(dense.pg_index[pg])
+                    new["sh_pool"].append(dense.pool_index[pid])
+                    new["sh_level"].append(lvl_id[domain])
+                    new["sh_class"].append(dense.class_id[dev_class]
+                                           if dev_class is not None else -1)
+                    new["sh_step"].append(si)
+                    new["sh_slot"].append(slot)
+                    new["sh_sbase"].append(base)
+                    new["sh_scnt"].append(scnt)
+            for attr, vals in new.items():
+                setattr(dense, attr, np.concatenate(
+                    [getattr(dense, attr), vals]).astype(np.int64))
+
+    def _kept_certificates(self, run, dense: DenseState, rows: np.ndarray
+                           ) -> np.ndarray:
+        """The certificates that survive a pure foreign-movement run: clear
+        each move's endpoints and every current holder of its PG, then run
+        the legality core's triggers that ``_Chunk.apply`` runs, as one net
+        sweep of the synced carry's values against the mutated state's
+        (the criteria are memoryless, so the net compare is exact for the
+        devices the run did not touch)."""
+        state, cfg = self.state, self.cfg
+        n_dev = dense.n_dev
+        held = self._pruned_mask
+        if held is None or not held.any() or self._synced_bounds is None:
+            return np.zeros(n_dev, bool)
+        pruned = held.copy()
+        for d in run:
+            mv = d.movement
+            pruned[state.idx(mv.src_osd)] = pruned[state.idx(mv.dst_osd)] = \
+                False
+            for o in state.acting[mv.pg]:
+                pruned[state.idx(o)] = False
+        if not pruned.any():
+            return pruned
+        used_old, counts_old = self._synced_bounds
+        cap, used, util = dense.cap, dense.used, dense.util
+        util_old = used_old / cap
+        dst_ok = legality.dst_count_ok(dense.pool_counts, dense.ideal,
+                                       cfg.count_slack)
+        dst_ok_old = legality.dst_count_ok(counts_old, dense.ideal,
+                                           cfg.count_slack)
+        iota = np.arange(n_dev)
+        kill = legality.bound_crossed(
+            util_old[:, None], util[:, None], util[None, :],
+            iota[:, None], iota[None, :]).any(axis=0)
+        flips = dst_ok & ~dst_ok_old
+        kill |= (flips.any(axis=1)[:, None]
+                 & (dense.pool_counts > 0.0)).any(axis=0)
+        largest = rows[:, 0]
+        maxsz = np.where(largest >= 0,
+                         dense.sh_size[np.maximum(largest, 0)], 0.0)
+        lim = legality.capacity_limit(cap, cfg.headroom)
+        dropped = used < used_old
+        kill |= (dropped[:, None]
+                 & legality.bound_capacity_binding(
+                     used_old[:, None], lim[:, None],
+                     maxsz[None, :])).any(axis=0)
+        return pruned & ~kill
+
+    def _absorb(self) -> bool:
+        """Absorb the pending delta run into a new carry; False (and no
+        change) where it is not absorbable.
+
+        Structural path (a pool create, a held stash or a movement): the
+        row lists, the acting table and the shard sizes are re-read from
+        the state; the row table widens only where its rows plus a chunk
+        no longer fit.  Otherwise (growth, device adds, out flips): the
+        device's acting table and shard geometry stay, and the row table
+        comes back in one counted fetch, padded for adds and re-sorted for
+        growth.  Both end in :meth:`_new_step`, the constructor
+        :meth:`_build` uses."""
+        run = self._pending_run()
+        if not self._absorbable(run):
+            return False
+        state, dense = self.state, self._dense
+        old = self._step
+        added = [d.device for d in run if isinstance(d, DeviceAddDelta)]
+        created = [d.pool_id for d in run if isinstance(d, PoolCreateDelta)]
+        grew = any(isinstance(d, PoolGrowthDelta) for d in run)
+        outs = any(isinstance(d, DeviceOutDelta) for d in run)
+        structural = (bool(created) or bool(self._stash)
+                      or any(isinstance(d, MovementDelta) for d in run))
+        # certificates survive only a pure foreign-movement run with no
+        # discarded stash: un-applying stashed moves would leave them
+        # claiming facts about a state that never existed, and every other
+        # delta type changes their inputs (sizes, ideals, the device axis)
+        keep_bounds = (self.source_bounds and not self._stash and bool(run)
+                       and all(isinstance(d, MovementDelta) for d in run))
+        self._stash = []
+
+        if created:
+            self._extend_pools(created)
+        const = dict(old.const)         # _new_step refreshes "ideal"
+        if added or outs:
+            # appending devices keeps every existing id (_class_ids_stable;
+            # domain ids are first-seen); out flips land in dev_in
+            dense.legality = leg = LegalityState.from_cluster(state)
+            dense.class_id = leg.class_id
+            dense.dev_class = leg.dev_class
+            dense.dev_domain_arr = leg.dev_domain_arr
+            dense.n_domains = leg.n_domains
+            dense.dev_in = leg.dev_in
+            dense.cap = leg.cap
+            const.update(self._device_const(dense))
+        n_dev = dense.n_dev = state.n_devices
+        # the host views a cold build reads, from the mutated state
+        dense.used = state.used()
+        dense.util = dense.used / dense.cap
+        pool_ids = sorted(state.pools)
+        dense.ideal = np.stack([state.ideal_shard_count(state.pools[p])
+                                for p in pool_ids])
+        dense.pool_counts = np.stack([state.pool_counts[p] for p in pool_ids]
+                                     ).astype(np.float64)
+        dense.sh_size = np.array([state.shard_sizes[pg]
+                                  for pg, _ in dense.shard_key])
+
+        if structural:
+            rows_on_dev: list[list[int]] = [[] for _ in range(n_dev)]
+            for osd, shards in state.shards_on.items():
+                d = state.idx(osd)
+                for key in shards:
+                    rows_on_dev[d].append(dense.row_of[key])
+            nrows = np.array([len(r) for r in rows_on_dev], np.int64)
+            r_cap = old.r_cap
+            if int(nrows.max(initial=0)) + self.chunk > r_cap:
+                r_cap = self._round_cap(int(nrows.max()) + self.chunk)
+            rows = _pack_rows(rows_on_dev, dense.sh_size, r_cap)
+            acting = self._acting(dense)
+            const.update(self._shard_const(dense))
+        else:
+            acting = old.dyn["acting"]
+            packed = _fetch(torch.cat([old.dyn["nrows"][:, None],
+                                       old.dyn["rows_on"]], dim=1))
+            nrows, rows = packed[:, 0].copy(), packed[:, 1:].copy()
+            if added:
+                rows = np.concatenate(
+                    [rows, np.full((len(added), rows.shape[1]), -1,
+                                   np.int64)])
+                nrows = np.concatenate([nrows, np.zeros(len(added),
+                                                        np.int64)])
+            if grew:
+                sh_size = dense.sh_size
+                for d in range(n_dev):
+                    nd = int(nrows[d])
+                    rows[d, :nd] = sorted(rows[d, :nd].tolist(),
+                                          key=lambda r: (-sh_size[r], r))
+                const["sh_size"] = self._tensor(
+                    sh_size.astype(np.float64), F64)
+
+        held = self._pruned if keep_bounds else 0
+        pruned = (self._kept_certificates(run, dense, rows) if keep_bounds
+                  else np.zeros(n_dev, bool))
+        # a partial refresh: only the fields the carry and _reconcile read
+        # are current; membership, occupancy and row sets are not, so the
+        # mirror refuses a warm start (DenseState.require_fresh)
+        dense.mirror_complete = False
+        self._step = self._new_step(const, dense, acting=acting, rows=rows,
+                                    nrows=nrows, pruned=pruned)
+        self._done = False
+        self._absorbed_deltas += len(run)
+        reg = _obs_registry()
+        reg.inc("absorb.runs")
+        for d in run:
+            reg.inc("absorb.deltas", type=type(d).__name__)
+        _obs.point("batch.absorb", cat="batch", deltas=len(run),
+                   structural=bool(structural), kept_bounds=bool(keep_bounds),
+                   certificates_held=held, certificates_kept=int(pruned.sum()))
+        self._epoch = state.mutation_epoch
+        self._drop_synced_pending()
+        self._snapshot_bounds()
+        return True
+
+    def _snapshot_bounds(self) -> None:
+        """Keep the synced state's used bytes and pool counts while the
+        carry holds a certificate (what ``_kept_certificates`` compares
+        against); nothing otherwise."""
+        mask = self._pruned_mask
+        if self._stash or mask is None or not mask.any():
+            self._synced_bounds = None
+            return
+        state = self.state
+        self._synced_bounds = (
+            state.used(),
+            np.stack([state.pool_counts[p] for p in sorted(state.pools)]
+                     ).astype(np.float64))
 
     def sync(self) -> None:
-        """Cold-build on first use or after any external mutation."""
-        if self._epoch < 0 or self.stale:
+        """Bring the carry up to date with the bound state: a cold build on
+        first use, else an absorption of the pending deltas, else (where
+        they cannot be absorbed) a full rebuild."""
+        if self._epoch < 0:
+            self._build()
+        elif self.stale and not self._absorb():
             self._build()
 
     # -- planning ------------------------------------------------------------
@@ -532,10 +914,16 @@ class BatchPlanner:
                     sources_tried=tried,
                 ))
         self._epoch = state.mutation_epoch
+        self._drop_synced_pending()     # the planner's own replayed moves
+        # synced to the state: a backlog concern (the replay of a large
+        # plan passing PENDING_CAP) is moot, staleness is the epoch compare
+        self._invalid = False
+        self._snapshot_bounds()
         return movements, records
 
     def _registry_stats(self, snap: dict, stats_out: dict) -> None:
-        """Deltas of this engine's registry counters since plan entry."""
+        """Deltas of this engine's registry counters since plan entry;
+        ``absorbed_deltas`` is the planner's lifetime count."""
         d = _obs_registry().deltas_since(snap)
         stats_out["rebuilds"] = int(d.get("batch.rebuilds", 0))
         stats_out["host_syncs"] = int(d.get("batch.host_syncs", 0))
@@ -543,7 +931,7 @@ class BatchPlanner:
         stats_out["stash_moves"] = int(d.get("batch.stash_moves", 0))
         stats_out["cache_hits"] = 0
         stats_out["cache_misses"] = 0
-        stats_out["absorbed_deltas"] = 0
+        stats_out["absorbed_deltas"] = self._absorbed_deltas
 
     def _repad(self) -> None:
         """Widen the per-device row table to max rows + chunk (one sync).
@@ -587,7 +975,8 @@ class BatchPlanner:
                 moves_np = packed[:5 * m].reshape(m, 5)
                 done, overflow = bool(packed[5 * m]), bool(packed[5 * m + 1])
                 nmax = int(packed[5 * m + 2])
-                self._pruned = int(packed[5 * m + 3])
+                self._pruned_mask = packed[5 * m + 3:] != 0
+                self._pruned = int(self._pruned_mask.sum())
                 emitted = moves_np[moves_np[:, 0] >= 0]
                 sp.set(emitted=len(emitted), done=done, overflow=overflow,
                        dispatch_s=round(t1 - t0, 6),

@@ -21,7 +21,9 @@ The SIMT K3 at state widths 128 (in float32) and 256 (the widest the
 block fits) is held to the float32 plain version at 1e-4 in float32 and,
 in bf16, per row at 1e-2.  ``select_rows`` is held bitwise to ``select_rows_ref`` on
 the planner carries of ``tests/_select_rows_carries.py``, the knife's
-edge of the variance test on each side among them."""
+edge of the variance test on each side among them.  The batch engine's
+warm continuation after each delta type equals a cold plan on the card,
+with ``select_rows`` launched once a step."""
 
 import numpy as np
 import pytest
@@ -436,3 +438,81 @@ def test_k1_select_rows_raises(card):
             select_move.select_rows_fwd(src_order, n_avail, cap_lim, d, c,
                                         scal)
     assert select_move.launch_count() == before
+
+
+# ---------------------------------------------------------------------------
+# the batch engine's warm start on the card
+
+
+def _warm_mutate(name: str, state) -> None:
+    """One delta of each type on the port's small paper cluster (no JAX
+    here: the reference lanes are held in ``tests/test_torch_warm.py``)."""
+    from repro_torch.core import (Device, Movement, PlacementRule, Pool,
+                                  TiB, place_pg)
+    from repro_torch.core.equilibrium import EquilibriumConfig
+    from repro_torch.core.planner import create_planner
+    if name == "growth":
+        state.grow_pool(0, 2.0 * TiB)
+    elif name == "device-add":
+        state.add_device(Device(id=500, capacity=8 * TiB,
+                                device_class="hdd", host="hx"))
+    elif name == "renumbering-class":
+        state.add_device(Device(id=502, capacity=4 * TiB,
+                                device_class="aaa-first", host="ha"))
+    elif name == "device-out":
+        state.mark_out(state.devices[1].id)
+    elif name == "foreign-movement":
+        mv = create_planner("equilibrium_faithful",
+                            cfg=EquilibriumConfig(max_moves=1)).plan(
+            _exact_copy(state)).moves[0]
+        state.apply(Movement(mv.pg, mv.slot, mv.src_osd, mv.dst_osd,
+                             mv.size))
+    elif name == "pool-create":
+        pid = 1 + max(state.pools)
+        pool = Pool(pid, "fresh", 8, PlacementRule.replicated(2, "host",
+                                                             "hdd"),
+                    stored_bytes=0.4 * TiB)
+        state.add_pool(pool, {(pid, i): place_pg(state.devices, pool, i,
+                                                 seed=3) for i in range(8)},
+                       {(pid, i): pool.nominal_shard_size for i in range(8)})
+
+
+def _exact_copy(state):
+    from repro_torch.core import ClusterState
+    return ClusterState.from_plain(state.to_plain())
+
+
+@pytest.mark.parametrize("first_budget", [5, 3], ids=["synced", "stash"])
+@pytest.mark.parametrize("name", ["growth", "device-add", "device-out",
+                                  "foreign-movement", "pool-create",
+                                  "renumbering-class"])
+def test_warm_continuation_on_card_matches_cold(card, name, first_budget):
+    """After each delta type the warm continuation on the card equals a
+    cold plan on the card of the mutated state, move for move and in
+    ``sources_tried``; it absorbs (no rebuild) except where a new class
+    renumbers the carry's ids, and K1's ``select_rows`` runs once a step
+    on the refreshed carry."""
+    from repro_torch import obs
+    from repro_torch.core.clustergen import small_test_cluster
+    from repro_torch.core.planner import create_planner
+    state = small_test_cluster()
+    planner = create_planner("equilibrium_batch", chunk=5, device="cuda")
+    planner.plan(state, budget=first_budget)
+    _warm_mutate(name, state)
+    cold = create_planner("equilibrium_batch", chunk=5, device="cuda").plan(
+        _exact_copy(state), record_trajectory=True)
+    reg = obs.registry()
+    snap = reg.snapshot()
+    select_move.reset_launch_count()
+    warm = planner.plan(state, record_trajectory=True)
+    launches = select_move.launch_counts()
+    d = reg.deltas_since(snap)
+    assert [(m.pg, m.slot, m.src_osd, m.dst_osd) for m in warm.moves] \
+        == [(m.pg, m.slot, m.src_osd, m.dst_osd) for m in cold.moves]
+    assert [r.sources_tried for r in warm.records] \
+        == [r.sources_tried for r in cold.records]
+    assert warm.stats["rebuilds"] == (name == "renumbering-class")
+    assert d.get("absorb.runs", 0) == (name != "renumbering-class")
+    assert launches == {"select_rows": 5 * int(d.get("batch.chunks", 0)),
+                        "masked_select": 0}
+    state.check_valid()

@@ -5,6 +5,10 @@ NumPy inputs — the foundation of the batch engine's bit-identity.
 Inputs are made from a seed with NumPy, in the manner of
 tests/test_legality_core.py."""
 
+import ast
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -158,3 +162,66 @@ def test_public_names_are_the_functions():
                  "device_domain_ids", "LegalityState"):
         obj = getattr(leg, name)
         assert obj.__name__ == name
+
+
+# ---------------------------------------------------------------------------
+# the port's own guard: legality math is declared only in its core
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+#: the one port module that may define the legality vocabulary
+PORT_HOME = "repro_torch/core/legality.py"
+#: port modules that must import it (dropping the import would mean
+#: re-derived expressions)
+PORT_MUST_IMPORT = ("repro_torch/core/equilibrium.py",
+                    "repro_torch/core/equilibrium_batch.py",
+                    "repro_torch/core/dense.py",
+                    "repro_torch/kernels/ref.py")
+
+
+def _legality_tool():
+    """``tools/check_legality.py`` as a module (its AST walk and its
+    ``LEGALITY_NAMES``)."""
+    path = REPO / "tools" / "check_legality.py"
+    spec = importlib.util.spec_from_file_location("check_legality", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _port_violations(tool, src: pathlib.Path) -> list[str]:
+    out = []
+    for path in sorted((src / "repro_torch").rglob("*.py")):
+        rel = path.relative_to(src).as_posix()
+        if rel != PORT_HOME:
+            out += tool._check_file(path, rel)
+    out += [f"{rel}: does not import the legality core"
+            for rel in PORT_MUST_IMPORT
+            if not tool._imports_legality(ast.parse((src / rel).read_text()))]
+    return out
+
+
+def test_port_declares_legality_math_only_in_its_core():
+    tool = _legality_tool()
+    assert _port_violations(tool, REPO / "src") == []
+    assert {n for n in tool.LEGALITY_NAMES if not hasattr(leg, n)} == set()
+
+
+def test_port_legality_guard_catches_a_redeclaration(tmp_path):
+    """The same walk on a copy of the engine modules with one criterion
+    re-declared, and with the core's import dropped, reports both."""
+    tool = _legality_tool()
+    src = tmp_path / "src"
+    for rel in PORT_MUST_IMPORT:
+        (src / rel).parent.mkdir(parents=True, exist_ok=True)
+        (src / rel).write_text((REPO / "src" / rel).read_text())
+    batch = src / "repro_torch/core/equilibrium_batch.py"
+    batch.write_text(batch.read_text() + "\n\ndef dst_count_ok(c, i, s):\n"
+                     "    return c < i\n")
+    ref = src / "repro_torch/kernels/ref.py"
+    ref.write_text(ref.read_text().replace("from ..core import legality",
+                                           "legality = None"))
+    found = _port_violations(tool, src)
+    assert any("equilibrium_batch.py" in v and "dst_count_ok" in v
+               for v in found), found
+    assert any(v.startswith("repro_torch/kernels/ref.py: does not import")
+               for v in found), found

@@ -196,8 +196,9 @@ def test_warm_budget_split_emits_the_cold_sequence():
 
 
 def test_external_mutation_rebuilds_and_stays_faithful():
-    """Delta absorption is not ported: observe() says the carry is lost,
-    and the next plan rebuilds from the mutated state."""
+    """The unstamped-delta fallback: ``observe(None)`` cannot be ordered
+    in the delta stream, so it poisons the stream and observe() says the
+    carry is lost; the next plan rebuilds from the mutated state."""
     ref = ref_gen.small_test_cluster()
     ref_p = ref_create("equilibrium_faithful")
     state = port_gen.small_test_cluster()
@@ -251,6 +252,18 @@ def test_registry_and_stats_schema():
         port_gen.small_test_cluster(), budget=4)
     assert res.stats["engine"] == "batch" and res.stats["pipeline"] is False
     assert res.stats["source_bounds"] is True
+    # absorbed_deltas is the planner's lifetime count, not a per-plan delta
+    state = port_gen.small_test_cluster()
+    planner = create_planner("equilibrium_batch", chunk=4, device="cpu")
+    assert planner.plan(state, budget=4).stats["absorbed_deltas"] == 0
+    state.grow_pool(0, 1 * TiB)
+    state.grow_pool(1, 1 * TiB)
+    assert planner.plan(state, budget=4).stats["absorbed_deltas"] == 2
+    state.mark_out(state.devices[0].id)
+    res = planner.plan(state, budget=4)
+    assert res.stats["absorbed_deltas"] == 3 and res.stats["rebuilds"] == 0
+    assert planner.plan(state, budget=4).stats["absorbed_deltas"] == 3
+    assert validate_stats(res.stats) == []
 
 
 def test_planning_state_stays_float64():
