@@ -56,6 +56,23 @@ phases, one JSON line each, and exits non-zero if any fails:
    the foreign move's certificates kept, host syncs = chunks + re-pads +
    non-structural absorptions, K1's ``select_rows`` once a step; the
    absorb and rebuild seconds beside the cold plans' set-up seconds;
+   then ``dense_lanes``: the per-source legacy lane
+   (``equilibrium_jax_legacy``, one upload, one launch of K1's standalone
+   reduction ``masked_select`` and one fetch a source) on the card and
+   the host dense lane (``equilibrium``, with and without source bounds)
+   on four small clusters, at the default config and the fuzzer's slack
+   regression's (``count_slack`` 1.39, ``min_variance_delta`` 1e-5),
+   each equal to the faithful planner (moves, ``sources_tried``, the
+   certificate counters); then both lanes to convergence on exact copies
+   of cluster B: phase 3's 839 moves, the ``tried_hist`` of
+   ``planner.tail.B1x.batch-nobounds``, the legacy lane's
+   ``masked_select`` launched once per evaluated source (one host sync
+   each) and ``select_rows`` never, its first 50 launches bitwise against
+   the plain version on the same masks; seconds, moves/s and launches of
+   each lane, and the standalone kernel's times at the lane's mask shape;
+   where the legacy lane's time goes over its first 100 moves (host
+   seconds by part, and a profile: device busy time, idle share, device
+   operations and K1's device time a source);
 5. kernel K2 (``flash_attention``) against its plain version over the
    reference sweep (T and Dh grid, f32 and bf16, GQA, window / softcap /
    causal variants), Dh 112 and 256, windows that skip whole key tiles,
@@ -103,7 +120,9 @@ phases, one JSON line each, and exits non-zero if any fails:
     tensor-core kernel) and the rest, as in phase 8;
 11. the kernel table line (K1 once: ``select_rows``'s launches and
     times, its launches by path (the cold cluster-B plan, the warm
-    lifecycle), and the standalone reduction's beside them; K3 once: the
+    lifecycle, the legacy lane's standalone reduction), and the
+    standalone reduction's launches and times at the legacy lane's shape
+    beside them, with its times at the batch step's shape; K3 once: the
     tensor-core variant's launches and times at the zamba2 prefill, and
     beside them its N 128 instantiation's and the SIMT variant's at
     mamba2's shape); the last line names the device.
@@ -564,29 +583,39 @@ def k1_masked_select() -> dict:
         torch.tensor([0.5, 0.2, 0.2, 0.0], dtype=torch.float64, device=dev))
     check(bool(tie_any[0]) and int(tie_dst[0]) == 1, "K1 tie-break")
 
-    # times at the cluster-B step shape: 25 sources x 184 rows, 995 OSDs
+    # times at the batch step's shape: 25 sources x 184 rows, 995 OSDs
     M, D = 25 * 184, 995
     v = torch.as_tensor(rng.random((M, D)) < 0.05, device=dev)
     u = torch.as_tensor(rng.random(D), dtype=torch.float64, device=dev)
-    inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
-    k_ms = time_cuda(lambda: masked_select_fwd(v, u))
-    p_ms = time_cuda(lambda: masked_select_ref(v, u))
-    lib_ms = time_cuda(lambda: torch.where(v, u, inf).min(dim=1))
-    k_dev = device_ms(lambda: masked_select_fwd(v, u), 50)
-    lib_dev = device_ms(lambda: torch.where(v, u, inf).min(dim=1), 50)
-    # least work: read the mask and util once, write any and dst once;
-    # one comparison per mask entry
-    nbytes = M * D + D * 8 + M * (1 + 4)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = M * D / VECTOR_OPS_PER_S * 1e3
-    out = {"cases": len(cases), "max_abs_err": worst, "shape": [M, D],
-           "dtype": "float64", "ms": k_ms, "plain_ms": p_ms,
-           "library_ms": lib_ms, "device_ms": k_dev,
-           "library_device_ms": lib_dev, "bytes": nbytes, "ops": M * D,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    out = {"cases": len(cases), "max_abs_err": worst,
+           **time_masked_select(v, u)}
     emit("k1_masked_select", **out)
     return out
+
+
+def time_masked_select(v: torch.Tensor, u: torch.Tensor) -> dict:
+    """K1's standalone reduction on the mask ``v`` and util ``u`` (on the
+    card): kernel, plain, library-call and bound times."""
+    from repro_torch.kernels.ref import masked_select_ref
+    from repro_torch.kernels.select_move import masked_select_fwd
+    M, D = v.shape
+    inf = torch.tensor(float("inf"), dtype=u.dtype, device=u.device)
+    # least work: read the mask and util once, write any and dst once;
+    # one comparison per mask entry
+    nbytes = M * D * v.element_size() + D * u.element_size() + M * (1 + 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = M * D / VECTOR_OPS_PER_S * 1e3
+    return {"shape": [M, D], "dtype": str(u.dtype).split(".")[-1],
+            "ms": time_cuda(lambda: masked_select_fwd(v, u)),
+            "plain_ms": time_cuda(lambda: masked_select_ref(v, u)),
+            "library_ms": time_cuda(
+                lambda: torch.where(v, u, inf).min(dim=1)),
+            "device_ms": device_ms(lambda: masked_select_fwd(v, u), 50),
+            "library_device_ms": device_ms(
+                lambda: torch.where(v, u, inf).min(dim=1), 50),
+            "bytes": nbytes, "ops": M * D,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 #: float64 and int32 operations an H100 SXM completes a second: 132 SMs x
@@ -921,6 +950,7 @@ def phase_full(card: str, scale: int = 1, built: tuple | None = None
         emit(f"cluster_b{scale}", **out)
         return out
     emit("cluster_b", **out)
+    out["move_list"] = as_tuples(res.moves)       # phase dense_lanes' gate
     prof = profile_chunk(base.copy(), card)
     emit("cluster_b_profile", **prof)
     out["profile"] = prof
@@ -1175,6 +1205,257 @@ def phase_warm(card: str, base) -> dict:
            **totals, "variance_before": base.utilization_variance(),
            "variance_after": state.utilization_variance(), "steps": rows}
     emit("cluster_b_warm", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the dense lanes (equilibrium and equilibrium_jax_legacy)
+
+#: the fuzzer's slack regression config
+#: (``tests/regressions/legacy-slack-divergence.json``)
+SLACK_CFG = {"count_slack": 1.39, "min_variance_delta": 1e-5}
+#: the cluster-B legacy launches whose (any, dst) are held bitwise to the
+#: plain version on the same mask
+LEGACY_HELD = 50
+
+
+class ReductionSpy:
+    """Wraps ``ops.masked_select`` (the dense legacy lane's reduction
+    call) while active: counts the calls and keeps the first ``keep``
+    calls' mask, util and outputs, cloned on the card, for a bitwise
+    comparison after the run."""
+
+    def __init__(self, keep: int = 0):
+        self.keep, self.calls, self.held = keep, 0, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._ops, self._real = ops, ops.masked_select
+
+        def spy(valid, util):
+            any_row, dst = self._real(valid, util)
+            self.calls += 1
+            if len(self.held) < self.keep:
+                self.held.append((valid.clone(), util.clone(),
+                                  any_row.clone(), dst.clone()))
+            return any_row, dst
+
+        ops.masked_select = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.masked_select = self._real
+
+
+def dense_lane_plan(lane: str, state, cfg=None, keep: int = 0, **kw):
+    """One plan of a dense lane under :class:`ReductionSpy`: (result,
+    seconds, K1 launches by kernel, spy)."""
+    from repro_torch.core.equilibrium import EquilibriumConfig
+    from repro_torch.core.planner import create_planner
+    from repro_torch.kernels import select_move
+    planner = create_planner(lane, cfg=cfg or EquilibriumConfig(), **kw)
+    torch.cuda.synchronize()
+    select_move.reset_launch_count()          # this lane's run only
+    with ReductionSpy(keep) as spy:
+        t0 = time.perf_counter()
+        res = planner.plan(state, record_trajectory=True,
+                           record_free_space=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return res, seconds, select_move.launch_counts(), spy
+
+
+def check_legacy_launches(what: str, res, launches: dict, spy) -> int:
+    """The legacy lane launched K1's standalone reduction once per
+    evaluated source (one fetch each, ``host_syncs``) and never the fused
+    kernel; returns the launches."""
+    n = res.stats["host_syncs"]
+    check(n > 0 and launches == {"select_rows": 0, "masked_select": n}
+          and spy.calls == n,
+          f"{what}: K1 launched {launches}, {spy.calls} reduction calls, "
+          f"{n} host syncs; expected one masked_select per evaluated "
+          f"source")
+    return n
+
+
+def legacy_breakdown(base, budget: int = 100) -> dict:
+    """Where the legacy lane's time goes over the first ``budget`` moves
+    of cluster B: host seconds in building the mirror (``DenseState``,
+    once a plan), in ``upload`` (the packed buffer's fill and its one
+    host-to-device copy), in ``select_legacy`` (issuing the mask's
+    operations and K1), waiting in ``_fetch`` (the one sync a source,
+    which waits for the device's work) and the rest (the scan, the row
+    gathers and padding, applying and recording the moves); then the same
+    moves under the profiler: device busy seconds, idle share, device
+    operations and K1's device time a source."""
+    from repro_torch.core import equilibrium_dense as lane
+    from repro_torch.core.equilibrium import EquilibriumConfig
+    from repro_torch.core.planner import create_planner
+    from repro_torch.kernels import select_move
+    cfg = EquilibriumConfig(max_moves=budget)
+    spent: Counter = Counter()
+    real = {name: getattr(lane, name)
+            for name in ("DenseState", "upload", "select_legacy",
+                         "_fetch")}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            if name == "upload":
+                spent["bytes"] += sum(a.nbytes for a in args[0].values())
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    for name, fn in real.items():
+        setattr(lane, name, timed(name, fn))
+    try:
+        res, seconds, launches, _ = dense_lane_plan(
+            "equilibrium_jax_legacy", exact_copy(base), cfg, device="cuda")
+    finally:
+        for name, fn in real.items():
+            setattr(lane, name, fn)
+    n = launches["masked_select"]
+    out = {"moves": len(res.moves), "sources": n, "plan_s": seconds,
+           "upload_bytes_per_source": spent["bytes"] / n,
+           "host_s": {"mirror_build": spent["DenseState"],
+                      "upload": spent["upload"],
+                      "select_issue": spent["select_legacy"],
+                      "fetch_wait": spent["_fetch"],
+                      "rest": seconds - sum(spent[name] for name in real)}}
+
+    states = [exact_copy(base) for _ in range(PROFILE_TRIES)]
+    planner = create_planner("equilibrium_jax_legacy", cfg=cfg,
+                             device="cuda")
+
+    def run():
+        select_move.reset_launch_count()
+        planner.plan(states.pop(), record_trajectory=True,
+                     record_free_space=False)
+        torch.cuda.synchronize()
+
+    def missing(rows):
+        got = matching(rows, "masked_select_kernel")[1]
+        want = select_move.launch_counts()["masked_select"]
+        return None if got == want else f"{got} of {want} K1 launches"
+
+    rows, wall = profiled(run, missing, "legacy lane")
+    busy_ms = sum(ms for ms, _ in rows.values())
+    k1_ms, _ = matching(rows, "masked_select_kernel")
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]
+    out["profile"] = {
+        "wall_s": wall, "device_busy_s": busy_ms / 1e3,
+        "idle_share": 1.0 - busy_ms / 1e3 / wall,
+        "device_ops_per_source": sum(k for _, k in rows.values()) / n,
+        "k1_device_ms_per_source": k1_ms / n,
+        "top": [{"name": k[:80], "device_ms": ms, "calls": c}
+                for k, (ms, c) in top]}
+    return out
+
+
+def phase_dense_lanes(card: str, base, full: dict) -> dict:
+    """The dense lanes on the card: ``equilibrium_jax_legacy`` (K1's
+    standalone reduction once per evaluated source) and the host
+    ``equilibrium``, with and without source bounds, on four small
+    clusters at the default and the slack regression's config against the
+    faithful planner; then both lanes to convergence on exact copies of
+    cluster B against phase 3's plan, the first ``LEGACY_HELD`` legacy
+    launches held bitwise to the plain version on the same masks."""
+    from repro_torch.core import clustergen
+    from repro_torch.core.equilibrium import EquilibriumConfig
+    from repro_torch.core.planner import create_planner
+    from repro_torch.kernels.ref import masked_select_ref
+    t0 = time.perf_counter()
+    small, small_launches = [], 0
+    for name, max_moves in (("small_test_cluster", None), ("cluster_a", None),
+                            ("cluster_c", 200), ("cluster_f", 200)):
+        built = getattr(clustergen, name)()
+        for label, kw in (("default", {}), ("slack", SLACK_CFG)):
+            if max_moves is not None:
+                kw = dict(kw, max_moves=max_moves)
+            cfg = EquilibriumConfig(**kw)
+            ref = create_planner("equilibrium_faithful", cfg=cfg).plan(
+                exact_copy(built), record_trajectory=True,
+                record_free_space=False)
+            ref_b = create_planner("equilibrium_faithful", cfg=cfg,
+                                   source_bounds=True).plan(exact_copy(built))
+            for lane, extra in (("equilibrium_jax_legacy",
+                                 {"device": "cuda"}),
+                                ("equilibrium", {}),
+                                ("equilibrium", {"source_bounds": True})):
+                what = f"{name} {label} {lane} {extra}"
+                res, _, launches, spy = dense_lane_plan(
+                    lane, exact_copy(built), cfg, **extra)
+                check(len(res.moves) > 0 and same_plan(ref, res),
+                      f"{what}: differs from the faithful planner")
+                if lane == "equilibrium_jax_legacy":
+                    small_launches += check_legacy_launches(what, res,
+                                                            launches, spy)
+                else:
+                    check(launches == {"select_rows": 0, "masked_select": 0}
+                          and spy.calls == 0, f"{what}: launched K1")
+                if extra.get("source_bounds"):
+                    check((res.stats["bound_hits"],
+                           res.stats["pruned_sources"])
+                          == (ref_b.stats["bound_hits"],
+                              ref_b.stats["pruned_sources"]),
+                          f"{what}: certificate counters")
+            small.append({"cluster": name, "config": label,
+                          "moves": len(ref.moves),
+                          "bound_hits": ref_b.stats["bound_hits"]})
+    small_s = time.perf_counter() - t0
+
+    want = bench_row("planner.tail.B1x.batch-nobounds")
+    lanes = {}
+    for lane, extra in (("equilibrium_jax_legacy", {"device": "cuda"}),
+                        ("equilibrium", {})):
+        legacy = lane == "equilibrium_jax_legacy"
+        res, seconds, launches, spy = dense_lane_plan(
+            lane, exact_copy(base), keep=LEGACY_HELD if legacy else 0,
+            **extra)
+        hist = {int(k): v for k, v in res.stats["sources_tried_hist"].items()}
+        n = len(res.moves)
+        check(as_tuples(res.moves) == full["move_list"],
+              f"cluster B {lane}: {n} moves, not phase 3's "
+              f"{len(full['move_list'])}")
+        check(hist == want["tried_hist"],
+              f"cluster B {lane}: sources_tried histogram differs from "
+              f"planner.tail.B1x.batch-nobounds")
+        row = {"moves": n, "plan_s": seconds, "moves_per_s": n / seconds,
+               "sources_tried": sum(k * v for k, v in hist.items()),
+               "host_syncs": res.stats["host_syncs"],
+               "k1_launches": launches}
+        if legacy:
+            evaluated = check_legacy_launches(f"cluster B {lane}", res,
+                                              launches, spy)
+            worst = 0
+            for valid, util, any_k, dst_k in spy.held:
+                any_p, dst_p = masked_select_ref(valid, util)
+                worst = max(worst, int((dst_k.long() - dst_p.long())
+                                       .abs().max()))
+                check(torch.equal(any_k, any_p) and torch.equal(dst_k, dst_p),
+                      "cluster B legacy lane: a K1 launch differs from its "
+                      "plain version on the same mask")
+            # the kernel's times at the lane's own shape: the first
+            # held launch's mask (its timing launches come after the
+            # count was read)
+            row.update(evaluated_sources=evaluated,
+                       ms_per_source=seconds / evaluated * 1e3,
+                       held_bitwise=len(spy.held), max_abs_err=worst,
+                       mask_shapes=sorted({tuple(v.shape)
+                                           for v, *_ in spy.held}),
+                       k1_at_lane_shape=time_masked_select(
+                           *spy.held[0][:2]))
+        lanes[lane] = row
+    lanes["equilibrium_jax_legacy"]["breakdown"] = legacy_breakdown(base)
+    out = {"card": card, "small_runs": 3 * len(small),
+           "small_legacy_launches": small_launches, "small_s": small_s,
+           "small": small, "cluster_b": lanes,
+           "cluster_b_reference": "planner.tail.B1x.batch-nobounds",
+           "cap": None}
+    emit("dense_lanes", **out)
     return out
 
 
@@ -1950,6 +2231,7 @@ def main() -> int:
     phase_full(card, scale=2)
     phase_no_sync()
     warm = phase_warm(card, built_b[0])
+    dense = phase_dense_lanes(card, built_b[0], full)
     k2 = phase_k2(card)
     k3 = phase_k3(card)
     phase_lm_parity(card)
@@ -1980,20 +2262,31 @@ def main() -> int:
             "dtype": "float32",
             "max_abs_err": simt["errors"]["max_abs_err"],
             "library_ms": None} | {k: simt[k] for k in timing})
-    # K1's entry is the fused kernel the planner launches; the standalone
-    # reduction, which no main path launches, stands beside it
+    # K1's entry is the fused kernel the batch planner launches; the
+    # standalone reduction, which the legacy lane launches once per
+    # evaluated source, stands beside it
     k1_entry = kernel_entry("select_rows", "masked_select.cu",
                             "src/repro/kernels/select_move.py:44",
                             full["k1_launches"], k1)
     alone = k1["standalone"]
+    legacy_b = dense["cluster_b"]["equilibrium_jax_legacy"][
+        "evaluated_sources"]
     k1_entry.update(
         launches_by_kernel={"select_rows": full["k1_launches"],
-                            "masked_select": 0},
+                            "masked_select": legacy_b},
         launches_by_path={"cluster B cold plan": full["k1_launches"],
-                          "cluster B warm lifecycle": warm["k1_launches"]},
-        standalone_masked_select={"launches": 0} | {k: alone[k] for k in (
-            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_device_ms")})
+                          "cluster B warm lifecycle": warm["k1_launches"],
+                          "cluster B legacy lane": legacy_b},
+        standalone_masked_select={
+            "launches": legacy_b,
+            "max_abs_err": dense["cluster_b"]["equilibrium_jax_legacy"][
+                "max_abs_err"],
+            **dense["cluster_b"]["equilibrium_jax_legacy"][
+                "k1_at_lane_shape"],
+            "at_batch_step_shape": {k: alone[k] for k in (
+                "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms",
+                "library_device_ms")}})
     emit("profiles", sessions=PROFILE_LOG)
     print(json.dumps({"kernels": [
         k1_entry,

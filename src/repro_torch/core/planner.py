@@ -14,10 +14,14 @@ names and calling convention (:mod:`repro.core.planner`):
 * :func:`register_planner` / :func:`create_planner` — the registry.
 
 Registered here: ``equilibrium_faithful`` (the §3.1 loop, the port's host
-reference), ``equilibrium_batch`` (the device-resident engine; it runs on
-the CUDA card unless the caller passes ``device="cpu"``), ``mgr`` and
-``none``.  The first two share the ``equilibrium`` equivalence tag: they
-emit bitwise-identical move streams.
+reference), ``equilibrium`` (the dense-NumPy lane, on the host: the
+planner every consumer calls), ``equilibrium_jax_legacy`` (the
+per-source lane through K1's standalone reduction), ``equilibrium_batch``
+(the device-resident engine), ``mgr`` and ``none``.  The legacy and
+batch lanes run on the CUDA card unless the caller passes
+``device="cpu"``.  The four Equilibrium planners share the
+``equilibrium`` equivalence tag: they emit bitwise-identical move
+streams.
 """
 
 from __future__ import annotations
@@ -238,6 +242,62 @@ class FaithfulEquilibriumPlanner(_StatelessPlanner):
             return _finish(PlanResult(moves, records, self.name, stats={
                 "planning_seconds": time.perf_counter() - t0,
                 "budget": budget, "engine": "faithful", **aux}), sp)
+
+
+class _DensePlanner(_StatelessPlanner):
+    """Shared plan() for the dense lanes of
+    :mod:`~repro_torch.core.equilibrium_dense`."""
+
+    engine = "numpy"
+    device = None                        # the legacy lane's
+
+    def __init__(self, cfg: EquilibriumConfig | None = None,
+                 source_bounds: bool = False):
+        self.cfg = cfg or EquilibriumConfig()
+        self.source_bounds = source_bounds
+
+    def plan(self, state, *, budget=None, record_trajectory=False,
+             record_free_space=True):
+        from .equilibrium_dense import _balance_fast
+        with _plan_span(self.name) as sp:
+            t0 = time.perf_counter()
+            aux: dict = {}
+            moves, records = _balance_fast(
+                state, _with_budget(self.cfg, budget),
+                record_trajectory=record_trajectory,
+                record_free_space=record_free_space, engine=self.engine,
+                stats_out=aux, source_bounds=self.source_bounds,
+                device=self.device)
+            return _finish(PlanResult(moves, records, self.name, stats={
+                "planning_seconds": time.perf_counter() - t0,
+                "budget": budget, "engine": self.engine, **aux}), sp)
+
+
+@register_planner("equilibrium", sim_config_attr="equilibrium",
+                  description="dense-NumPy Equilibrium (small-cluster "
+                              "default, no warm-up cost)",
+                  equivalence="equilibrium")
+class EquilibriumPlanner(_DensePlanner):
+    name = "equilibrium"
+
+
+@register_planner("equilibrium_jax_legacy", sim_config_attr="equilibrium",
+                  description="first-generation per-source jitted path "
+                              "(benchmark baseline)",
+                  equivalence="equilibrium")
+class LegacyJaxEquilibriumPlanner(_DensePlanner):
+    """The per-source lane: one upload, one launch of K1's standalone
+    reduction and one fetch a source.  ``device=None`` runs on the CUDA
+    card and raises when there is none; ``device="cpu"`` runs the same
+    lane with K1's plain version."""
+
+    name = "equilibrium_jax_legacy"
+    engine = "jax-legacy"
+
+    def __init__(self, cfg: EquilibriumConfig | None = None,
+                 source_bounds: bool = False, device=None):
+        super().__init__(cfg, source_bounds)
+        self.device = resolve_device(device, "equilibrium_jax_legacy")
 
 
 @register_planner("equilibrium_batch", sim_config_attr="equilibrium",

@@ -23,7 +23,9 @@ in bf16, per row at 1e-2.  ``select_rows`` is held bitwise to ``select_rows_ref`
 the planner carries of ``tests/_select_rows_carries.py``, the knife's
 edge of the variance test on each side among them.  The batch engine's
 warm continuation after each delta type equals a cold plan on the card,
-with ``select_rows`` launched once a step."""
+with ``select_rows`` launched once a step.  The dense legacy lane on the
+card equals the faithful planner, with the standalone ``masked_select``
+launched once per evaluated source."""
 
 import numpy as np
 import pytest
@@ -516,3 +518,35 @@ def test_warm_continuation_on_card_matches_cold(card, name, first_budget):
     assert launches == {"select_rows": 5 * int(d.get("batch.chunks", 0)),
                         "masked_select": 0}
     state.check_valid()
+
+
+@pytest.mark.parametrize("slack", [False, True], ids=["default", "slack"])
+@pytest.mark.parametrize("cluster", ["small_test_cluster", "cluster_a",
+                                     "cluster_c"])
+def test_legacy_lane_on_card_matches_faithful(card, cluster, slack):
+    """The dense legacy lane on the card (its default device) emits the
+    faithful planner's sequence, move for move and in ``sources_tried``,
+    at the default config and the slack regression's; it launches K1's
+    standalone reduction once per evaluated source (one fetch each) and
+    the fused ``select_rows`` never."""
+    from repro_torch.core import clustergen
+    from repro_torch.core.equilibrium import EquilibriumConfig
+    from repro_torch.core.planner import create_planner
+    kw = dict(count_slack=1.39, min_variance_delta=1e-5) if slack else {}
+    cfg = EquilibriumConfig(max_moves=120, **kw)
+    base = getattr(clustergen, cluster)()
+    ref = create_planner("equilibrium_faithful", cfg=cfg).plan(
+        _exact_copy(base), record_trajectory=True)
+    planner = create_planner("equilibrium_jax_legacy", cfg=cfg)
+    assert planner.device.type == "cuda"
+    select_move.reset_launch_count()
+    got = planner.plan(_exact_copy(base), record_trajectory=True)
+    launches = select_move.launch_counts()
+    assert len(got.moves) > 0
+    assert [(m.pg, m.slot, m.src_osd, m.dst_osd) for m in got.moves] \
+        == [(m.pg, m.slot, m.src_osd, m.dst_osd) for m in ref.moves]
+    assert [r.sources_tried for r in got.records] \
+        == [r.sources_tried for r in ref.records]
+    n = got.stats["host_syncs"]
+    assert n >= len(got.moves)
+    assert launches == {"select_rows": 0, "masked_select": n}

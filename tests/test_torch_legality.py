@@ -174,6 +174,7 @@ PORT_HOME = "repro_torch/core/legality.py"
 #: re-derived expressions)
 PORT_MUST_IMPORT = ("repro_torch/core/equilibrium.py",
                     "repro_torch/core/equilibrium_batch.py",
+                    "repro_torch/core/equilibrium_dense.py",
                     "repro_torch/core/dense.py",
                     "repro_torch/kernels/ref.py")
 

@@ -238,12 +238,15 @@ def test_mgr_matches_reference():
 
 def test_registry_and_stats_schema():
     assert STATS_SCHEMA.keys() == REF_SCHEMA.keys()
-    assert available_planners() == ("equilibrium_batch",
-                                     "equilibrium_faithful", "mgr", "none")
-    assert planners_in_class("equilibrium") == ("equilibrium_batch",
-                                                 "equilibrium_faithful")
+    assert available_planners() == ("equilibrium", "equilibrium_batch",
+                                     "equilibrium_faithful",
+                                     "equilibrium_jax_legacy", "mgr", "none")
+    assert planners_in_class("equilibrium") == (
+        "equilibrium", "equilibrium_batch", "equilibrium_faithful",
+        "equilibrium_jax_legacy")
     for name in available_planners():
-        kw = {"device": "cpu"} if name == "equilibrium_batch" else {}
+        kw = {"device": "cpu"} if name in ("equilibrium_batch",
+                                           "equilibrium_jax_legacy") else {}
         res = create_planner(name, **kw).plan(port_gen.small_test_cluster(),
                                               budget=4)
         assert res.stats.keys() == REF_SCHEMA.keys(), name
