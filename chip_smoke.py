@@ -72,7 +72,27 @@ phases, one JSON line each, and exits non-zero if any fails:
    each lane, and the standalone kernel's times at the lane's mask shape;
    where the legacy lane's time goes over its first 100 moves (host
    seconds by part, and a profile: device busy time, idle share, device
-   operations and K1's device time a source);
+   operations and K1's device time a source); then the simulator
+   (``repro_torch.core.simulate``, ``repro_torch.sim``):
+   ``cluster_b_replay``, phase 3's plan replayed through ``simulate`` and
+   ``simulate_throttled`` (the paper's Table-1 quantities: gained free
+   space, moved bytes, variance before and after, the throttled ticks),
+   the throttled replay ending with an empty backlog, its ledger
+   balanced every tick and its physical bytes those of the target map
+   (rtol 1e-12); ``cluster_b_lifecycle``, one ``ScenarioEngine`` at
+   cluster B with the warm ``equilibrium_batch`` on the card (24 ticks,
+   64 moves a tick: growth of pools 0 and 2, a drain, a 12-OSD host, a
+   failure, a 256-PG EC 8+3 pool and its growth, 32 foreign upmaps, an
+   SSD), its metrics JSON and every tick's planned moves equal to the
+   host ``equilibrium`` lane's on another exact copy, one rebuild, K1's
+   ``select_rows`` once a step and ``masked_select`` never, host syncs =
+   chunks + re-pads + non-structural absorbs, the throttle's ledger
+   balanced every tick, both states valid; each tick's host seconds
+   split into the plan's chunks, its absorb and the engine's own work,
+   and both lanes' seconds; ``scenarios``, the six scenarios at full
+   length with ``equilibrium_batch`` on the card, each run's metrics
+   byte for byte those of ``BENCH_scenarios.json``, one rebuild each,
+   ``select_rows`` once a step;
 5. kernel K2 (``flash_attention``) against its plain version over the
    reference sweep (T and Dh grid, f32 and bf16, GQA, window / softcap /
    causal variants), Dh 112 and 256, windows that skip whole key tiles,
@@ -120,9 +140,10 @@ phases, one JSON line each, and exits non-zero if any fails:
     tensor-core kernel) and the rest, as in phase 8;
 11. the kernel table line (K1 once: ``select_rows``'s launches and
     times, its launches by path (the cold cluster-B plan, the warm
-    lifecycle, the legacy lane's standalone reduction), and the
-    standalone reduction's launches and times at the legacy lane's shape
-    beside them, with its times at the batch step's shape; K3 once: the
+    lifecycle, the legacy lane's standalone reduction, the simulator's
+    cluster-B lifecycle and the six scenarios), and the standalone
+    reduction's launches and times at the legacy lane's shape beside
+    them, with its times at the batch step's shape; K3 once: the
     tensor-core variant's launches and times at the zamba2 prefill, and
     beside them its N 128 instantiation's and the SIMT variant's at
     mamba2's shape); the last line names the device.
@@ -146,6 +167,7 @@ torch, NumPy and the standard library.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -951,6 +973,7 @@ def phase_full(card: str, scale: int = 1, built: tuple | None = None
         return out
     emit("cluster_b", **out)
     out["move_list"] = as_tuples(res.moves)       # phase dense_lanes' gate
+    out["moves"] = res.moves                      # phase cluster_b_replay's
     prof = profile_chunk(base.copy(), card)
     emit("cluster_b_profile", **prof)
     out["profile"] = prof
@@ -1456,6 +1479,339 @@ def phase_dense_lanes(card: str, base, full: dict) -> dict:
            "cluster_b_reference": "planner.tail.B1x.batch-nobounds",
            "cap": None}
     emit("dense_lanes", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the simulator (the Table-1 replay, the cluster-B lifecycle,
+# the six scenarios)
+
+#: the throttled replay's tick cap (phase 3's plan drains in far fewer)
+REPLAY_MAX_TICKS = 10_000
+#: the cluster-B lifecycle's length in ticks
+LIFECYCLE_TICKS = 24
+
+
+def phase_replay(card: str, base, full: dict) -> dict:
+    """Phase 3's plan replayed through the port's ``simulate`` and
+    ``simulate_throttled`` at cluster B (the paper's Table-1 quantities);
+    the same moves drained through a :class:`MovementThrottle` by hand,
+    its ledger checked each tick, must end with an empty backlog and the
+    physical bytes equal to the target map's."""
+    from repro_torch.core import (MovementThrottle, ThrottleConfig, simulate,
+                                  simulate_throttled)
+    moves = full["moves"]
+    throttle = ThrottleConfig()
+    t0 = time.perf_counter()
+    res = simulate(base, moves, record_trajectory=False)
+    simulate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    thr = simulate_throttled(base, moves, throttle,
+                             max_ticks=REPLAY_MAX_TICKS)
+    throttled_s = time.perf_counter() - t0
+    state = base.copy()
+    for mv in moves:
+        state.apply(mv)
+    q = MovementThrottle(throttle)
+    q.enqueue(moves)
+    ticks = 0
+    while q.backlog_moves and ticks < REPLAY_MAX_TICKS:
+        q.tick()
+        ticks += 1
+        check_ledger(q, f"replay tick {ticks}")
+    phys, used = q.physical_used(state), state.used()
+    check(q.backlog_moves == 0 and ticks == thr.ticks,
+          f"throttled replay: {q.backlog_moves} transfers left after "
+          f"{ticks} ticks (simulate_throttled: {thr.ticks})")
+    check(np.allclose(phys, used, rtol=1e-12, atol=0.0),
+          f"throttled replay: physical bytes differ from the target map's "
+          f"by {float(np.abs(phys - used).max())}")
+    # the throttle sums bytes a tick at a time, simulate a move at a time
+    check(res.moves_applied == len(full["move_list"])
+          and np.isclose(thr.moved_bytes, res.moved_bytes, rtol=1e-12,
+                         atol=0.0)
+          and thr.variance_target == res.variance_after,
+          f"throttled and plain replays disagree: moved bytes "
+          f"{thr.moved_bytes} and {res.moved_bytes}, target variance "
+          f"{thr.variance_target} and {res.variance_after}")
+    out = {"card": card, "moves": res.moves_applied,
+           "gained_free_space": res.gained_free_space,
+           "free_before": res.free_before, "free_after": res.free_after,
+           "moved_bytes": res.moved_bytes,
+           "variance_before": res.variance_before,
+           "variance_after": res.variance_after,
+           "variance_by_class_before": res.variance_by_class_before,
+           "variance_by_class_after": res.variance_by_class_after,
+           "throttle": {"max_concurrent": throttle.max_concurrent,
+                        "device_bytes_per_tick":
+                            throttle.device_bytes_per_tick},
+           "throttled_ticks": thr.ticks,
+           "throttled_max_in_flight": int(thr.in_flight_trajectory.max()),
+           "physical_variance_first_last": [
+               float(thr.variance_trajectory[0]),
+               float(thr.variance_trajectory[-1])],
+           "simulate_s": simulate_s, "simulate_throttled_s": throttled_s}
+    emit("cluster_b_replay", **out)
+    return out
+
+
+def check_ledger(q, what: str) -> dict:
+    """The throttle's two byte-conservation invariants, as a gate."""
+    try:
+        return q.check_conservation()
+    except AssertionError as e:
+        fail(f"{what}: {e}")
+
+
+def lifecycle_timeline(base) -> tuple:
+    """The cluster-B lifecycle (after the reference's ``churn-heavy``, at
+    cluster B's own pools and hosts): growth of the two largest pools, a
+    drain, a 12-OSD host of the mean HDD size, a failure on another host,
+    a new EC 8+3 pool and its growth, foreign upmaps and an SSD; a
+    rebalance every tick.  Returns ``(events, SimConfig)``."""
+    from repro_torch.core import GiB, PlacementRule, ThrottleConfig, TiB
+    from repro_torch.core.clustergen import PiB
+    from repro_torch.sim import (DeviceAdd, DeviceFail, DeviceOut,
+                                 ForeignMovement, HostAdd, PoolCreate,
+                                 PoolGrowth, RebalanceTick, SimConfig)
+    ticks = LIFECYCLE_TICKS
+    util = base.utilization()
+    hdds = sorted((d for d in base.devices if d.device_class == "hdd"),
+                  key=lambda d: (-util[base.idx(d.id)], d.id))
+    out_dev = hdds[0]                               # the fullest HDD
+    fail_dev = next(d for d in hdds if d.host != out_dev.host)
+    new_pool = 1 + max(base.pools)
+    events = [RebalanceTick(t) for t in range(ticks)]
+    events += [
+        PoolGrowth(0, pool_id=0, bytes_per_tick=10 * TiB, duration=ticks,
+                   every=2),
+        PoolGrowth(0, pool_id=2, bytes_per_tick=5 * TiB, duration=ticks,
+                   every=2),
+        DeviceOut(4, osd_id=out_dev.id),
+        HostAdd(6, n_osds=12, capacity_each=5 * PiB / 810,
+                device_class="hdd"),
+        DeviceFail(8, osd_id=fail_dev.id),
+        PoolCreate(10, name="fresh", pg_count=256,
+                   rule=PlacementRule.erasure(8, 3, "host", "hdd"), ec_k=8,
+                   stored_bytes=1 * TiB),
+        PoolGrowth(11, pool_id=new_pool, bytes_per_tick=2 * TiB,
+                   duration=ticks - 11, every=2),
+        ForeignMovement(12, count=32),
+        DeviceAdd(14, capacity=1 * PiB / 185, device_class="ssd"),
+    ]
+    cfg = SimConfig(ticks=ticks, moves_per_tick=64,
+                    throttle=ThrottleConfig(max_concurrent=64,
+                                            device_bytes_per_tick=512 * GiB),
+                    seed=0)
+    return events, cfg
+
+
+def drive_lifecycle(state, events, cfg, balancer: str, device=None) -> dict:
+    """One :class:`ScenarioEngine` run, tick by tick, under the tracer:
+    the throttle's ledger checked after every tick, each plan's moves
+    kept, and each tick's host seconds split into the plan (its chunks,
+    its sync: the cold build or an absorb, and the rest) and the engine's
+    own work (the metrics' ``collect``, the throttle's ``tick`` and the
+    events: growth, drains, expansion, foreign draws, pool creates and
+    the transfers they and the plan enqueue, whose seconds and count are
+    also kept apart).  ``device`` reaches the planner; the batch lane's planner
+    is bound to ``state`` before the first tick, so that its ``sync`` can
+    be timed."""
+    from repro_torch import obs
+    from repro_torch.sim import ScenarioEngine
+    cfg = dataclasses.replace(cfg, balancer=balancer)
+    engine = ScenarioEngine(state, events, cfg, device=device)
+    planner = engine._planner
+    spent: Counter = Counter()
+    plans: list[list] = []
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    impl = planner._bind(state) if balancer == "equilibrium_batch" else None
+    if impl is not None:
+        impl.sync = timed("sync", impl.sync)
+    plan = timed("plan", planner.plan)
+
+    def recorded(st, **kw):
+        res = plan(st, **kw)
+        plans.append(as_tuples(res.moves))
+        spent["chunks"] += res.stats.get("selection_seconds", 0.0)
+        spent["host_syncs"] += res.stats.get("host_syncs", 0)
+        return res
+
+    planner.plan = recorded
+    engine.metrics.collect = timed("collect", engine.metrics.collect)
+    engine.throttle.tick = timed("throttle", engine.throttle.tick)
+    enqueue = timed("enqueue", engine.throttle.enqueue)
+
+    def counted(moves, *args, **kw):
+        spent["enqueued"] += len(moves)
+        return enqueue(moves, *args, **kw)
+
+    engine.throttle.enqueue = counted
+    reg = obs.registry()
+    snap = reg.snapshot()
+    rows = []
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    with obs.tracing() as tr:
+        t_run = time.perf_counter()
+        for t in range(cfg.ticks):
+            before = dict(spent)
+            t0 = time.perf_counter()
+            engine.step(t)
+            tick_s = time.perf_counter() - t0
+            check_ledger(engine.throttle, f"{balancer} lifecycle tick {t}")
+            part = {k: spent[k] - before.get(k, 0.0) for k in spent}
+            plan_s = part.get("plan", 0.0)
+            sync_s = part.get("sync", 0.0)
+            chunks_s = part.get("chunks", 0.0)
+            rows.append({
+                "tick": t, "moves": len(plans[-1]) if plans else 0,
+                "host_syncs": int(part.get("host_syncs", 0)),
+                "tick_s": tick_s, "plan_s": plan_s, "chunks_s": chunks_s,
+                "absorb_s": sync_s,
+                "plan_rest_s": plan_s - chunks_s - sync_s,
+                "engine_s": tick_s - plan_s,
+                "collect_s": part.get("collect", 0.0),
+                "throttle_s": part.get("throttle", 0.0),
+                "events_s": (tick_s - plan_s - part.get("collect", 0.0)
+                             - part.get("throttle", 0.0)),
+                "enqueue_s": part.get("enqueue", 0.0),
+                "enqueued": int(part.get("enqueued", 0)),
+                "backlog": engine.throttle.backlog_moves})
+        seconds = time.perf_counter() - t_run
+    engine.state.check_valid()
+    absorbs = [r["args"] for r in tr.records
+               if r.get("name") == "batch.absorb"]
+    return {"engine": engine, "plans": plans, "ticks": rows,
+            "seconds": seconds, "deltas": reg.deltas_since(snap),
+            "absorbs": absorbs,
+            "json": json.dumps(engine.metrics.to_dict(), sort_keys=True)}
+
+
+def phase_lifecycle(card: str, base) -> dict:
+    """The simulator at cluster B: one :class:`ScenarioEngine` with the
+    warm ``equilibrium_batch`` on the card through
+    :func:`lifecycle_timeline`, on an exact copy of phase 3's cluster; the
+    same timeline on another exact copy through the host ``equilibrium``
+    lane (no code shared with the batch engine).  Gates: metrics JSON and
+    each tick's planned moves equal; one rebuild (the cold build); K1's
+    ``select_rows`` once a step and the standalone ``masked_select``
+    never; host syncs = chunks + re-pads + non-structural absorbs; the
+    throttle's ledger balanced every tick; both states valid at the
+    end."""
+    from repro_torch.kernels import select_move
+    from repro_torch.sim import RebalanceTick, ScenarioEngine
+    events, cfg = lifecycle_timeline(base)
+    select_move.reset_launch_count()          # the lifecycle's run only
+    batch = drive_lifecycle(exact_copy(base), events, cfg,
+                            "equilibrium_batch", device="cuda")
+    launches = select_move.launch_counts()
+    host = drive_lifecycle(exact_copy(base), events, cfg, "equilibrium")
+    for t, (a, b) in enumerate(zip(batch["plans"], host["plans"])):
+        check(a == b, f"lifecycle tick {t}: the batch lane planned "
+              f"{len(a)} moves, the host lane {len(b)}, not the same")
+    check(len(batch["plans"]) == len(host["plans"]) == cfg.ticks,
+          "lifecycle: plans per lane")
+    check(batch["json"] == host["json"],
+          "lifecycle: metrics JSON differs between the batch and host lanes")
+    d = batch["deltas"]
+    chunks = int(d.get("batch.chunks", 0))
+    repads = int(d.get("batch.repads", 0))
+    rebuilds = int(d.get("batch.rebuilds", 0))
+    syncs = int(d.get("batch.host_syncs", 0))
+    by_path = Counter("structural" if a["structural"] else "non_structural"
+                      for a in batch["absorbs"])
+    check(rebuilds == 1, f"lifecycle: {rebuilds} rebuilds, expected 1 (the "
+          f"cold build)")
+    check(launches == {"select_rows": chunks * cfg.moves_per_tick,
+                       "masked_select": 0},
+          f"lifecycle: K1 launched {launches} over {chunks} chunks of "
+          f"{cfg.moves_per_tick} steps")
+    check(syncs == chunks + repads + by_path["non_structural"],
+          f"lifecycle: host syncs {syncs} != chunks {chunks} + re-pads "
+          f"{repads} + non-structural absorbs {by_path['non_structural']}")
+    summary = batch["engine"].metrics.summary()
+    out = {"card": card, "osds_start": base.n_devices,
+           "osds_end": batch["engine"].state.n_devices,
+           "pgs_end": len(batch["engine"].state.acting),
+           "ticks": cfg.ticks, "moves_per_tick": cfg.moves_per_tick,
+           "events": [ScenarioEngine._describe(ev) for ev in events
+                      if not isinstance(ev, RebalanceTick)],
+           "moves_planned": sum(len(p) for p in batch["plans"]),
+           "rebuilds": rebuilds, "absorb_runs": int(d.get("absorb.runs", 0)),
+           "absorb_runs_by_path": dict(by_path), "chunks": chunks,
+           "repads": repads, "select_rows_launches": launches["select_rows"],
+           "masked_select_launches": launches["masked_select"],
+           "host_syncs": syncs, "seconds_batch": batch["seconds"],
+           "seconds_host": host["seconds"],
+           "final_variance": summary["final_variance"],
+           "total_transferred_bytes": summary["total_transferred_bytes"],
+           "max_backlog": max(r["backlog"] for r in batch["ticks"]),
+           "largest_enqueue": max(r["enqueued"] for r in batch["ticks"]),
+           "per_tick_batch": batch["ticks"],
+           "per_tick_host": [{k: r[k] for k in ("tick", "moves", "tick_s",
+                                                "plan_s", "engine_s")}
+                             for r in host["ticks"]]}
+    emit("cluster_b_lifecycle", **out)
+    return out
+
+
+def phase_scenarios(card: str) -> dict:
+    """The six scenarios at full length with ``equilibrium_batch`` on the
+    card (the planner's default device), each run's metrics byte for byte
+    those of the committed ``BENCH_scenarios.json``; K1's launches per
+    scenario."""
+    from repro_torch import obs
+    from repro_torch.kernels import select_move
+    from repro_torch.sim import SCENARIOS, run_scenario
+    want = json.loads((ROOT / "BENCH_scenarios.json").read_text())
+    reg = obs.registry()
+    rows = {}
+    for name in sorted(SCENARIOS):
+        ref = want["scenarios"][name]["equilibrium_batch"]
+        chunk = SCENARIOS[name].build(0, False)[2].moves_per_tick
+        snap = reg.snapshot()
+        select_move.reset_launch_count()
+        t0 = time.perf_counter()
+        got = run_scenario(name, "equilibrium_batch", seed=0, quick=False)
+        seconds = time.perf_counter() - t0
+        launches = select_move.launch_counts()
+        d = reg.deltas_since(snap)
+        check(json.dumps(got["metrics"], sort_keys=True)
+              == json.dumps(ref["metrics"], sort_keys=True),
+              f"scenario {name}: metrics differ from BENCH_scenarios.json")
+        chunks = int(d.get("batch.chunks", 0))
+        check(chunks > 0 and launches == {"select_rows": chunks * chunk,
+                                          "masked_select": 0},
+              f"scenario {name}: K1 launched {launches} over {chunks} "
+              f"chunks of {chunk} steps")
+        check(int(d.get("batch.rebuilds", 0)) == 1,
+              f"scenario {name}: {d.get('batch.rebuilds', 0)} rebuilds, "
+              f"expected 1 (the cold build)")
+        rows[name] = {"ticks": got["ticks"], "seconds": seconds,
+                      "moves": got["metrics"]["summary"][
+                          "total_planned_moves"],
+                      "select_rows_launches": launches["select_rows"],
+                      "chunks": chunks,
+                      "rebuilds": int(d.get("batch.rebuilds", 0)),
+                      "absorb_runs": int(d.get("absorb.runs", 0)),
+                      "host_syncs": int(d.get("batch.host_syncs", 0))}
+    out = {"card": card, "identical": True,
+           "reference": "BENCH_scenarios.json",
+           "seconds": sum(r["seconds"] for r in rows.values()),
+           "select_rows_launches": sum(r["select_rows_launches"]
+                                       for r in rows.values()),
+           "scenarios": rows}
+    emit("scenarios", **out)
     return out
 
 
@@ -2232,6 +2588,9 @@ def main() -> int:
     phase_no_sync()
     warm = phase_warm(card, built_b[0])
     dense = phase_dense_lanes(card, built_b[0], full)
+    phase_replay(card, built_b[0], full)
+    life = phase_lifecycle(card, built_b[0])
+    scen = phase_scenarios(card)
     k2 = phase_k2(card)
     k3 = phase_k3(card)
     phase_lm_parity(card)
@@ -2276,7 +2635,10 @@ def main() -> int:
                             "masked_select": legacy_b},
         launches_by_path={"cluster B cold plan": full["k1_launches"],
                           "cluster B warm lifecycle": warm["k1_launches"],
-                          "cluster B legacy lane": legacy_b},
+                          "cluster B legacy lane": legacy_b,
+                          "cluster B simulator lifecycle":
+                              life["select_rows_launches"],
+                          "six scenarios": scen["select_rows_launches"]},
         standalone_masked_select={
             "launches": legacy_b,
             "max_abs_err": dense["cluster_b"]["equilibrium_jax_legacy"][

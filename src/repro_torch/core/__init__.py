@@ -1,7 +1,8 @@
 """Core of the port: the cluster model, the legality core, the §3.1
-planners, the dense lanes and the device-resident batch engine.  The
-planner API (:mod:`repro_torch.core.planner`) is the entry point to
-every balancer."""
+planners, the dense lanes, the device-resident batch engine and the
+simulation harness (:mod:`~repro_torch.core.simulate`).  The planner
+API (:mod:`repro_torch.core.planner`) is the entry point to every
+balancer."""
 
 from .cluster import (ClusterDelta, ClusterState, Device, DeviceAddDelta,
                       DeviceOutDelta, GiB, Movement, MovementDelta,
@@ -15,6 +16,9 @@ from .mgr_balancer import MgrBalancerConfig
 from .planner import (PlanResult, Planner, PlannerSpec, available_planners,
                       create_planner, get_planner_spec, planners_in_class,
                       register_planner)
+from .simulate import (MovementThrottle, SimulationResult, ThrottleConfig,
+                       ThrottledReplayResult, compare_balancers, simulate,
+                       simulate_throttled)
 
 __all__ = [
     "ClusterState", "Device", "Movement", "PlacementRule", "Pool", "RuleStep",
@@ -25,4 +29,6 @@ __all__ = [
     "create_planner", "get_planner_spec", "available_planners",
     "planners_in_class", "ClusterDelta", "MovementDelta", "PoolGrowthDelta",
     "DeviceAddDelta", "DeviceOutDelta", "PoolCreateDelta",
+    "SimulationResult", "compare_balancers", "simulate", "MovementThrottle",
+    "ThrottleConfig", "ThrottledReplayResult", "simulate_throttled",
 ]

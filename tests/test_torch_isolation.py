@@ -46,7 +46,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     assert {"repro_torch.kernels.flash_attention",
             "repro_torch.kernels.ssd_scan", "repro_torch.models.lm",
             "repro_torch.models.convert",
-            "repro_torch.configs.zamba2_7b"} <= walked
+            "repro_torch.configs.zamba2_7b", "repro_torch.core.simulate",
+            "repro_torch.sim.engine", "repro_torch.sim.generate"} <= walked
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
