@@ -92,7 +92,24 @@ phases, one JSON line each, and exits non-zero if any fails:
    and both lanes' seconds; ``scenarios``, the six scenarios at full
    length with ``equilibrium_batch`` on the card, each run's metrics
    byte for byte those of ``BENCH_scenarios.json``, one rebuild each,
-   ``select_rows`` once a step;
+   ``select_rows`` once a step; then ``fuzz``, the differential fuzzer
+   (``repro_torch.fuzz``) on the card: ``generate_timeline`` seeds 0 to
+   31 of the ``quick`` profile and 0 to 7 of ``nightly`` and the four
+   ``tests/regressions`` timelines, each through the port's whole
+   ``"equilibrium"`` class with the device at its default (the batch and
+   legacy lanes on the card), the ``mgr`` and ``none`` baselines and the
+   serialize-and-replay check, every oracle a gate (legality and
+   variance replayed on a pre-plan copy, the throttle's ledger every
+   tick, agreement of move streams and metrics JSON, one rebuild of the
+   batch lane, replay); K1's ``select_rows`` once a step of the batch
+   lanes and ``masked_select`` once per source the legacy lanes
+   evaluated, both more than zero times; oracle checks by oracle,
+   timelines, lanes, moves and seconds; then the cluster-B lifecycle of
+   ``cluster_b_lifecycle`` through the warm batch lane on the card
+   behind the harness's replay proxy, its 24 ticks' moves replayed
+   through ``move_is_legal`` and ``apply``, the variance never rising,
+   its moves, metrics JSON, rebuild and ``select_rows`` launches those
+   of ``cluster_b_lifecycle``;
 5. kernel K2 (``flash_attention``) against its plain version over the
    reference sweep (T and Dh grid, f32 and bf16, GQA, window / softcap /
    causal variants), Dh 112 and 256, windows that skip whole key tiles,
@@ -141,7 +158,9 @@ phases, one JSON line each, and exits non-zero if any fails:
 11. the kernel table line (K1 once: ``select_rows``'s launches and
     times, its launches by path (the cold cluster-B plan, the warm
     lifecycle, the legacy lane's standalone reduction, the simulator's
-    cluster-B lifecycle and the six scenarios), and the standalone
+    cluster-B lifecycle, the six scenarios, the fuzz sweep and corpus by
+    kernel, and the cluster-B lifecycle under the fuzzer's oracles), and
+    the standalone
     reduction's launches and times at the legacy lane's shape beside
     them, with its times at the batch step's shape; K3 once: the
     tensor-core variant's launches and times at the zamba2 prefill, and
@@ -1762,7 +1781,7 @@ def phase_lifecycle(card: str, base) -> dict:
                                                 "plan_s", "engine_s")}
                              for r in host["ticks"]]}
     emit("cluster_b_lifecycle", **out)
-    return out
+    return out | {"plans": batch["plans"], "json": batch["json"]}
 
 
 def phase_scenarios(card: str) -> dict:
@@ -1812,6 +1831,160 @@ def phase_scenarios(card: str) -> dict:
                                        for r in rows.values()),
            "scenarios": rows}
     emit("scenarios", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the differential fuzzer (``repro_torch.fuzz``) on the card
+
+#: the generated sweep: ``generate_timeline`` seeds by profile
+FUZZ_SWEEP = (("quick", range(0, 32)), ("nightly", range(0, 8)))
+
+
+def fuzz_runs(timelines) -> dict:
+    """Each ``(label, timeline)`` through the port's whole
+    ``"equilibrium"`` class on the card (the harness's default device),
+    the ``mgr`` and ``none`` baselines and the replay, every oracle a
+    gate.  Counts what K1 must have launched: one ``select_rows`` a step
+    of the batch lane's chunks, one ``masked_select`` per source the
+    legacy lane evaluated (its fetches, ``dense.host_syncs``).  Each
+    lane's seconds are summed by engine (the replay's lane under its
+    reference engine's name)."""
+    from repro_torch import fuzz, obs
+    from repro_torch.fuzz import harness
+    reg = obs.registry()
+    moves = lanes = steps = 0
+    sources = reg.get("dense.host_syncs")
+    per = {}
+    lane_s: Counter = Counter()
+    run_lane = harness.run_lane
+
+    def timed_lane(tl, engine, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return run_lane(tl, engine, *args, **kw)
+        finally:
+            lane_s[engine] += time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    for label, tl in timelines:
+        snap = reg.snapshot("batch.chunks")
+        t1 = time.perf_counter()
+        harness.run_lane = timed_lane
+        try:
+            got = fuzz.run_timeline(tl)
+        except fuzz.OracleFailure as e:
+            fail(f"fuzz {label}: {e}")
+        finally:
+            harness.run_lane = run_lane
+        chunks = int(reg.deltas_since(snap).get("batch.chunks", 0))
+        steps += chunks * max(1, int(tl.sim["moves_per_tick"]))
+        check(got["equilibrium_batch"].rebuilds == 1,
+              f"fuzz {label}: the batch lane rebuilt "
+              f"{got['equilibrium_batch'].rebuilds} times")
+        moves += got["equilibrium"].planned_moves
+        lanes += len(got) + 1                      # the replay's lane
+        per[label] = {"lanes": sorted(got),
+                      "moves": got["equilibrium"].planned_moves,
+                      "seconds": time.perf_counter() - t1}
+    return {"timelines": len(per), "lanes": lanes, "moves": moves,
+            "batch_steps": steps,
+            "legacy_sources": int(reg.get("dense.host_syncs") - sources),
+            "seconds": time.perf_counter() - t0,
+            "lane_seconds": dict(sorted(lane_s.items())),
+            "per_timeline": per}
+
+
+def phase_fuzz(card: str, base, life: dict) -> dict:
+    """The fuzzer's oracles on the card: the generated sweep
+    (:data:`FUZZ_SWEEP`), the four ``tests/regressions`` timelines
+    through the whole class (the slack regression through the card's
+    legacy lane), and phase ``cluster_b_lifecycle``'s timeline through the
+    warm ``equilibrium_batch`` on the card behind the harness's replay
+    proxy (every move replayed through ``move_is_legal`` and ``apply`` on
+    a pre-plan copy, the variance never rising, the throttle's ledger
+    every tick, at most one rebuild), its moves, metrics, rebuilds and
+    ``select_rows`` launches those of phase ``cluster_b_lifecycle``."""
+    from repro_torch import fuzz, obs
+    from repro_torch.fuzz.harness import run_lifecycle
+    from repro_torch.kernels import select_move
+    from repro_torch.sim import generate_timeline
+    reg = obs.registry()
+    snap = reg.snapshot("fuzz.")
+    groups = {profile: [(f"{profile} seed {seed}",
+                         generate_timeline(seed, profile))
+                        for seed in seeds]
+              for profile, seeds in FUZZ_SWEEP}
+    groups["corpus"] = [(path.stem, fuzz.load_timeline(path))
+                        for path in fuzz.iter_corpus()]
+    runs, launches = {}, {}
+    for name, timelines in groups.items():
+        select_move.reset_launch_count()
+        runs[name] = fuzz_runs(timelines)
+        launches[name] = select_move.launch_counts()
+        want = {"select_rows": runs[name]["batch_steps"],
+                "masked_select": runs[name]["legacy_sources"]}
+        check(launches[name] == want and min(want.values()) > 0,
+              f"fuzz {name}: K1 launched {launches[name]}, the batch lanes "
+              f"ran {want['select_rows']} steps and the legacy lanes "
+              f"evaluated {want['masked_select']} sources")
+    slack = runs["corpus"]["per_timeline"].get("legacy-slack-divergence")
+    check(runs["corpus"]["timelines"] == 4 and slack is not None
+          and "equilibrium_jax_legacy" in slack["lanes"],
+          f"fuzz corpus: {sorted(runs['corpus']['per_timeline'])}")
+    sweep = {name: {k: v for k, v in runs[name].items()
+                    if k != "per_timeline"}
+             | {"seeds": f"{seeds.start}:{seeds.stop}"}
+             for name, seeds in FUZZ_SWEEP}
+    deltas = reg.deltas_since(snap, "fuzz.")
+    failures = {k: v for k, v in deltas.items()
+                if k.startswith("fuzz.oracle_failures")}
+    check(not failures, f"fuzz: oracle failures {failures}")
+
+    events, cfg = lifecycle_timeline(base)
+    cfg = dataclasses.replace(cfg, balancer="equilibrium_batch")
+    snap_b = reg.snapshot()
+    select_move.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        lane = run_lifecycle(exact_copy(base), events, cfg,
+                             "equilibrium_batch")
+    except fuzz.OracleFailure as e:
+        fail(f"fuzz at cluster B: {e}")
+    full_s = time.perf_counter() - t0
+    full_launches = select_move.launch_counts()
+    want = [mv for plan in life["plans"] for mv in plan]
+    check([mv[:4] for mv in lane.moves] == want
+          and lane.metrics_json == life["json"],
+          f"fuzz at cluster B: {lane.planned_moves} moves replayed, phase "
+          f"cluster_b_lifecycle planned {len(want)}; the moves or metrics "
+          f"differ")
+    check(lane.rebuilds == life["rebuilds"] == 1
+          and full_launches == {"select_rows": life["select_rows_launches"],
+                                "masked_select": 0},
+          f"fuzz at cluster B: {lane.rebuilds} rebuilds, K1 launched "
+          f"{full_launches}; phase cluster_b_lifecycle: {life['rebuilds']} "
+          f"and {life['select_rows_launches']}")
+    d_b = reg.deltas_since(snap_b)
+    checks = {k[len("fuzz.oracle_checks{oracle="):-1]: int(v)
+              for k, v in sorted(deltas.items())
+              if k.startswith("fuzz.oracle_checks")}
+    out = {"card": card,
+           "sweep": sweep,
+           "sweep_seconds": sum(r["seconds"] for r in sweep.values()),
+           "corpus_seconds": runs["corpus"]["seconds"],
+           "timelines": int(deltas.get("fuzz.timelines", 0)),
+           "lanes": int(sum(v for k, v in deltas.items()
+                            if k.startswith("fuzz.lanes"))),
+           "oracle_checks": checks, "oracle_failures": 0,
+           "k1_launches": launches, "corpus": runs["corpus"],
+           "cluster_b": {
+               "moves_replayed": lane.planned_moves, "ticks": cfg.ticks,
+               "rebuilds": lane.rebuilds,
+               "absorb_runs": int(d_b.get("absorb.runs", 0)),
+               "k1_launches": full_launches, "seconds": full_s,
+               "seconds_unproxied": life["seconds_batch"]}}
+    emit("fuzz", **out)
     return out
 
 
@@ -2591,6 +2764,7 @@ def main() -> int:
     phase_replay(card, built_b[0], full)
     life = phase_lifecycle(card, built_b[0])
     scen = phase_scenarios(card)
+    fz = phase_fuzz(card, built_b[0], life)
     k2 = phase_k2(card)
     k3 = phase_k3(card)
     phase_lm_parity(card)
@@ -2638,7 +2812,14 @@ def main() -> int:
                           "cluster B legacy lane": legacy_b,
                           "cluster B simulator lifecycle":
                               life["select_rows_launches"],
-                          "six scenarios": scen["select_rows_launches"]},
+                          "six scenarios": scen["select_rows_launches"],
+                          "fuzz sweep": {
+                              k: sum(fz["k1_launches"][p][k]
+                                     for p, _ in FUZZ_SWEEP)
+                              for k in ("select_rows", "masked_select")},
+                          "fuzz corpus": fz["k1_launches"]["corpus"],
+                          "cluster B lifecycle under the fuzzer's oracles":
+                              fz["cluster_b"]["k1_launches"]},
         standalone_masked_select={
             "launches": legacy_b,
             "max_abs_err": dense["cluster_b"]["equilibrium_jax_legacy"][

@@ -550,3 +550,55 @@ def test_legacy_lane_on_card_matches_faithful(card, cluster, slack):
     n = got.stats["host_syncs"]
     assert n >= len(got.moves)
     assert launches == {"select_rows": 0, "masked_select": n}
+
+
+def test_fuzz_timeline_on_card_passes_every_oracle(card):
+    """One generated timeline through the port's whole ``"equilibrium"``
+    class with the device left at its default, the card: the batch lane's
+    ``select_rows`` once a step and the legacy lane's ``masked_select``
+    once per evaluated source, every oracle passing (legality, variance,
+    conservation, agreement, at most one rebuild, the baselines and the
+    replay)."""
+    from repro_torch import fuzz
+    from repro_torch.sim import generate_timeline
+    select_move.reset_launch_count()
+    lanes = fuzz.run_timeline(generate_timeline(0))
+    launches = select_move.launch_counts()
+    assert set(lanes) == {"equilibrium", "equilibrium_batch",
+                          "equilibrium_faithful", "equilibrium_jax_legacy",
+                          "mgr", "none"}
+    assert lanes["equilibrium"].planned_moves > 0
+    assert lanes["equilibrium_batch"].rebuilds == 1
+    assert launches["select_rows"] > 0 and launches["masked_select"] > 0
+
+
+def test_fuzz_slack_regression_through_the_card_legacy_lane(card):
+    """``tests/regressions/legacy-slack-divergence.json`` (the float32
+    downcast that once diverged the legacy lane) through the port class on
+    the card, the legacy lane included, under every oracle."""
+    from repro_torch import fuzz
+    tl = fuzz.load_timeline(fuzz.corpus_dir()
+                            / "legacy-slack-divergence.json")
+    select_move.reset_launch_count()
+    lanes = fuzz.run_timeline(tl, engines=(
+        "equilibrium", "equilibrium_faithful", "equilibrium_batch",
+        "equilibrium_jax_legacy"))
+    launches = select_move.launch_counts()
+    assert lanes["equilibrium_jax_legacy"].planned_moves == 30
+    assert launches["masked_select"] > 0 and launches["select_rows"] > 0
+
+
+def test_fuzz_mutation_does_not_reach_the_card_kernel(card):
+    """``select_rows`` compiles the class fence into the kernel: under the
+    ``class_blind`` mutation the batch lane on the card still plans the
+    healthy moves (which is why the CLI refuses that combination), while
+    the host lane plans the illegal one the oracle catches."""
+    from repro_torch import fuzz
+    tl = fuzz.load_timeline(fuzz.corpus_dir() / "class-fence-mutant.json")
+    healthy = fuzz.run_lane(tl, "equilibrium")
+    with fuzz.mutated("class_blind"):
+        on_card = fuzz.run_lane(tl, "equilibrium_batch")
+        with pytest.raises(fuzz.OracleFailure, match="illegal move"):
+            fuzz.run_lane(tl, "equilibrium")
+    assert on_card.moves == healthy.moves
+    assert on_card.metrics_json == healthy.metrics_json
