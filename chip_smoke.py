@@ -9,7 +9,8 @@ phases, one JSON line each, and exits non-zero if any fails:
 
 0. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions, the kernel build time; K1's fused kernel
-   ``select_rows_kernel`` keeps float64 rounding: its PTX (``nvcc -ptx``)
+   ``select_rows_kernel`` keeps float64 rounding in each of its four
+   instantiations (staged or not, cached or not): its PTX (``nvcc -ptx``)
    has no float64 ``fma`` and no add, subtract or multiply without
    ``.rn``, and every DFMA of its SASS belongs to one of its divisions;
    ``cuobjdump -sass`` of K2's library and of each of K3's four
@@ -155,8 +156,30 @@ phases, one JSON line each, and exits non-zero if any fails:
     tensor-core variant (N 128), none SIMT, K2 never; seconds, tokens/s,
     peak memory and the profiled device-time shares of K3 (all of it the
     tensor-core kernel) and the rest, as in phase 8;
-11. the kernel table line (K1 once: ``select_rows``'s launches and
-    times, its launches by path (the cold cluster-B plan, the warm
+11. ``batch_optins`` (after the prefills, so that every earlier phase
+    runs as it did before), the batch engine's opt-ins: K1's cached
+    instantiation (the legality cache) bitwise against its plain version
+    (``any``, ``dst``, ``cand_src``, ``cand_row`` and the cache it
+    writes) on the test carries in each cache state (every block a miss,
+    every block a hit, a tag mismatch), on the engine's own cache after
+    planning steps with it, and at cluster B's first step, staged and
+    from device memory, with its times there beside the uncached
+    instantiation's; the cache x pipeline x source bounds matrix at chunk
+    8 on two small clusters, the card's run equal to the CPU's in moves
+    and every counter; cluster B with the cache to convergence on an
+    exact copy under a tracer, its moves, histogram and certificate
+    counters those of ``planner.tail.B1x.batch-cache``, its tiles walked,
+    candidate tiles, cache hits, misses and repairs and pipelined chunks
+    those the reference engine recorded in
+    ``tests/fixtures/batch_counters_cluster_b.json``, ``select_rows`` once
+    a step and every launch cached; plan seconds with the cache on and
+    the pipeline off beside the defaults, five turns each; a profiled
+    first chunk with the cache; and phase ``fuzz``'s sweep through the
+    batch lane with the cache under a tracer, every oracle a gate,
+    against that phase's faithful and dense lanes;
+12. the kernel table line (K1 twice: ``select_rows``'s uncached and,
+    as ``select_rows_cached``, its cached instantiation's launches and
+    times; the uncached one's launches by path (the cold cluster-B plan, the warm
     lifecycle, the legacy lane's standalone reduction, the simulator's
     cluster-B lifecycle, the six scenarios, the fuzz sweep and corpus by
     kernel, and the cluster-B lifecycle under the fuzzer's oracles), and
@@ -505,7 +528,10 @@ def k1_instructions(build, ptx: subprocess.Popen) -> dict:
         fma = sum(op == "fma" for op, _ in ops)
         div = sum(op == "div" and ".rn" in mods for op, mods in ops)
         dfma = division_only_dfma(sass[name])
-        key = "staged" if "ILb1E" in name else "device_memory"
+        # select_rows_kernel<kStaged, kCached>
+        m = re.search(r"ILb([01])ELb([01])E", name)
+        key = ("staged" if m.group(1) == "1" else "device_memory") \
+            + ("_cached" if m.group(2) == "1" else "")
         out[key] = {"ptx_f64_ops": len(ops), "ptx_fma_f64": fma,
                     "ptx_f64_without_rn": unrounded,
                     "ptx_div_rn_f64": div, **dfma, **ptxas.get(name, {})}
@@ -516,7 +542,8 @@ def k1_instructions(build, ptx: subprocess.Popen) -> dict:
               and len(dfma["dfma_per_division"]) == 1,
               f"select_rows_kernel ({key}) SASS holds a DFMA outside its "
               f"divisions: {out[key]}")
-    check(set(out) == {"staged", "device_memory"},
+    check(set(out) == {"staged", "device_memory", "staged_cached",
+                       "device_memory_cached"},
           f"K1's PTX lists select_rows_kernel as {sorted(out)}")
     return {"k1_select_rows_instructions": out}
 
@@ -868,13 +895,13 @@ def bench_row(name: str) -> dict:
             "pruned_sources": int(fields["pruned_sources"])}
 
 
-def profile_chunk(state, card: str) -> dict:
+def profile_chunk(state, card: str, **options) -> dict:
     """Kernel time by name over the first chunk of a fresh cluster-B plan
     (profiler on; its timings are read for shares, not reported as the
-    plan's speed)."""
+    plan's speed); ``options`` go to the engine."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.equilibrium_batch import BatchPlanner
-    planner = BatchPlanner(state, device="cuda")
+    planner = BatchPlanner(state, device="cuda", **options)
     planner.sync()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1839,6 +1866,10 @@ def phase_scenarios(card: str) -> dict:
 
 #: the generated sweep: ``generate_timeline`` seeds by profile
 FUZZ_SWEEP = (("quick", range(0, 32)), ("nightly", range(0, 8)))
+#: the host lanes whose moves and metrics JSON phase ``fuzz`` keeps for
+#: phase ``batch_optins``, by timeline label and engine
+FUZZ_HELD = ("equilibrium_faithful", "equilibrium")
+FUZZ_LANES: dict[str, dict[str, tuple]] = {}
 
 
 def fuzz_runs(timelines) -> dict:
@@ -1884,6 +1915,8 @@ def fuzz_runs(timelines) -> dict:
               f"{got['equilibrium_batch'].rebuilds} times")
         moves += got["equilibrium"].planned_moves
         lanes += len(got) + 1                      # the replay's lane
+        FUZZ_LANES[label] = {e: (got[e].moves, got[e].metrics_json)
+                             for e in FUZZ_HELD}
         per[label] = {"lanes": sorted(got),
                       "moves": got["equilibrium"].planned_moves,
                       "seconds": time.perf_counter() - t1}
@@ -1985,6 +2018,316 @@ def phase_fuzz(card: str, base, life: dict) -> dict:
                "k1_launches": full_launches, "seconds": full_s,
                "seconds_unproxied": life["seconds_batch"]}}
     emit("fuzz", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase batch_optins: the batch engine's opt-ins (the legality cache
+# through K1's cached instantiation, device telemetry, pipelined dispatch)
+
+#: the opt-ins' registry counters, as ``batch.<name>``
+OPTIN_COUNTERS = ("tiles_walked", "cand_tiles", "cache_hits", "cache_misses",
+                  "cache_repairs", "chunks_overlapped", "repads",
+                  "stash_moves")
+#: the reference engine's counters at cluster B (tests/_ref_batch_counters.py)
+REF_COUNTERS = ROOT / "tests" / "fixtures" / "batch_counters_cluster_b.json"
+#: plan-time turns per (legality_cache, pipeline) configuration
+OPTIN_TURNS = 5
+
+
+def counted(state, traced: bool = True, **options) -> dict:
+    """One plan of ``state`` to convergence through
+    ``create_planner("equilibrium_batch", **options)`` (under a tracer
+    where ``traced``): its moves, ``sources_tried`` histogram, certificate
+    counters, opt-in counters, chunks, host syncs and plan seconds."""
+    import contextlib
+    from repro_torch import obs
+    from repro_torch.core.planner import create_planner
+    planner = create_planner("equilibrium_batch", **options)
+    reg = obs.registry()
+    snap = reg.snapshot()
+    with obs.tracing() if traced else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        res = planner.plan(state, record_free_space=False)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    d = reg.deltas_since(snap)
+    st = res.stats
+    return {"moves": as_tuples(res.moves),
+            "tried_hist": {int(k): v for k, v in
+                           st["sources_tried_hist"].items()},
+            "bound_hits": st["bound_hits"],
+            "pruned_sources": st["pruned_sources"],
+            **{key: int(d.get(f"batch.{key}", 0)) for key in OPTIN_COUNTERS},
+            "chunks": int(d.get("batch.chunks", 0)),
+            "host_syncs": st["host_syncs"], "seconds": secs}
+
+
+def cached_case(args, cache, smem_limit=None) -> bool:
+    """K1's cached instantiation against its plain version on the card
+    with the same cache, bitwise: any, dst, cand_src, cand_row and the
+    cache each writes."""
+    from repro_torch.kernels import select_move
+    from repro_torch.kernels.ref import select_rows_ref
+    dev = args[0].device
+    cache = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+             for k, v in cache.items()}
+    out_k, out_p = cache["cache_ok"].clone(), cache["cache_ok"].clone()
+    got = select_move.select_rows_fwd(*args, smem_limit=smem_limit, **cache,
+                                      cache_out=out_k, cand_row=True)
+    want = select_rows_ref(*args, **cache, cache_out=out_p, cand_row=True)
+    torch.cuda.synchronize()
+    return (all(torch.equal(g, w) for g, w in zip(got, want))
+            and torch.equal(out_k, out_p))
+
+
+def k1_cached(card: str, base_b, k1: dict) -> dict:
+    """K1's cached instantiation: bitwise against its plain version on
+    the test carries in each cache state (every block a miss, every block
+    a hit, a tag mismatch), on the engine's own cache after planning
+    steps with it, and at cluster B's first step in each state, staged
+    and from device memory; its kernel, plain and bound times at cluster
+    B's first step with every block a miss (the cache written) and a hit
+    (the cache read), in turns with the uncached instantiation."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _select_rows_carries import (CARRIES, cache_states, carry,
+                                      carry_id, engine_cache, to_device)
+    from repro_torch.core.equilibrium_batch import BatchPlanner
+    from repro_torch.kernels import select_move
+    from repro_torch.kernels.ref import select_rows_ref
+    dev = torch.device("cuda")
+    select_move.reset_launch_count()
+    cases = 0
+    for case in CARRIES:
+        args = carry(*case)
+        for name, cache, _ in cache_states(args):
+            cases += 1
+            check(cached_case(to_device(args, dev), cache),
+                  f"cached select_rows differs from its plain version on "
+                  f"{carry_id(case)} ({name})")
+    for cluster, legal in (("small_test_cluster", False),
+                           ("cluster_a", False), ("cluster_a", True)):
+        args, cache = engine_cache(cluster, 60, legal_hit=legal)
+        cases += 1
+        check(cached_case(to_device(args, dev), cache),
+              f"cached select_rows differs from its plain version on "
+              f"{cluster}'s own cache")
+    planner = BatchPlanner(base_b.copy(), legality_cache=True, device="cuda")
+    planner.sync()
+    step = planner._step
+    _, src_order, n_avail = step.sources()
+    args_b = (src_order, n_avail, step.cap_lim, step.dyn, step.const,
+              step.scal)
+    states_b = {name: cache for name, cache, _ in cache_states(args_b)}
+    for name, cache in states_b.items():
+        for limit in (None, 0):
+            cases += 1
+            check(cached_case(args_b, cache, limit),
+                  f"cached select_rows differs from its plain version at "
+                  f"cluster B's first step ({name}, smem_limit {limit})")
+    check(select_move.cached_launch_count() == cases,
+          f"cached launches {select_move.cached_launch_count()} of "
+          f"{cases} cases")
+
+    bound = select_move.SelectRows(*args_b[2:])
+    calls = {"uncached": lambda: bound(*args_b[:2])}
+    for name in ("miss", "hit"):
+        cache = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                 for k, v in states_b[name].items()}
+        out = cache["cache_ok"].clone()
+        calls[name] = (lambda c=cache, o=out: bound(
+            *args_b[:2], **c, cache_out=o, cand_row=True))
+    turns = {name: [] for name in calls}
+    for _ in range(3):
+        for name, fn in calls.items():
+            turns[name].append({"ms": time_cuda(fn),
+                                "device_ms": device_ms(fn, 50)})
+    med = {name: {key: float(np.median([t[key] for t in ts]))
+                  for key in ("ms", "device_ms")}
+           for name, ts in turns.items()}
+    miss = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in states_b["miss"].items()}
+    plain_ms = time_cuda(lambda: select_rows_ref(
+        *args_b, **miss, cache_out=miss["cache_ok"].clone(),
+        cand_row=True), 10, 2)
+    # least work with every block a miss: the uncached kernel's, and the
+    # (k, R, n) candidate bytes written, hit_blk read and cand_row written
+    k, R = src_order.shape[0], step.r_cap
+    n = args_b[3]["used"].shape[0]
+    nbytes = k1["bytes"] + k * R * n + k * R // step.rb + k * R
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(k1["f64_ops"] / F64_OPS_PER_S,
+                 k1["int_ops"] / INT_OPS_PER_S) * 1e3
+    out = {"card": card, "cases": cases, "max_abs_err": 0,
+           "comparison": "bitwise: any, dst, cand_src, cand_row and the "
+                         "written cache",
+           "at": "cluster B's first step, every block a miss",
+           "ms": med["miss"]["ms"], "device_ms": med["miss"]["device_ms"],
+           "hit_ms": med["hit"]["ms"], "hit_device_ms":
+               med["hit"]["device_ms"],
+           "uncached_ms": med["uncached"]["ms"],
+           "uncached_device_ms": med["uncached"]["device_ms"],
+           "plain_ms": plain_ms, "library_ms": None,
+           "library_device_ms": None, "turns": turns,
+           "cache_bytes": k * R * n, "bytes": nbytes,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit("k1_cached", **out)
+    return out
+
+
+def optin_matrix() -> dict:
+    """Cache x pipeline x source bounds at chunk 8 on two small clusters:
+    the card's run equal to the CPU's, in moves, ``sources_tried`` and
+    every counter, each under a tracer; ``select_rows`` once a step on the
+    card, the cached instantiation exactly where the cache is on."""
+    from repro_torch.core import clustergen
+    from repro_torch.kernels import select_move
+    runs = 0
+    t0 = time.perf_counter()
+    for cluster in ("small_test_cluster", "cluster_a"):
+        base = getattr(clustergen, cluster)()
+        for cache in (True, False):
+            for pipeline in (True, False):
+                for bounds in (True, False):
+                    kw = dict(chunk=8, legality_cache=cache,
+                              pipeline=pipeline, source_bounds=bounds)
+                    want = counted(exact_copy(base), device="cpu", **kw)
+                    select_move.reset_launch_count()
+                    got = counted(exact_copy(base), device="cuda", **kw)
+                    launches = select_move.launch_counts()["select_rows"]
+                    runs += 1
+                    want.pop("seconds"), got.pop("seconds")
+                    check(got == want, f"{cluster} {kw}: the card's run "
+                                       f"differs from the CPU's")
+                    check(launches == 8 * got["chunks"]
+                          and select_move.cached_launch_count()
+                          == (launches if cache else 0),
+                          f"{cluster} {kw}: K1 launches")
+    return {"runs": runs, "identical": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def optin_fuzz() -> dict:
+    """The generated sweep of phase ``fuzz`` through ``equilibrium_batch``
+    with the legality cache on the card, under a tracer: every oracle of
+    the lane (legality, variance, conservation, one rebuild) and agreement
+    in moves and metrics JSON with phase ``fuzz``'s faithful and dense
+    lanes of the same timelines; ``select_rows`` once a step, all cached."""
+    from repro_torch import obs
+    from repro_torch.fuzz import OracleFailure
+    from repro_torch.fuzz.harness import run_lifecycle
+    from repro_torch.kernels import select_move
+    from repro_torch.sim import generate_timeline
+    reg = obs.registry()
+    timelines = moves = steps = 0
+    select_move.reset_launch_count()
+    t0 = time.perf_counter()
+    for profile, seeds in FUZZ_SWEEP:
+        for seed in seeds:
+            label = f"{profile} seed {seed}"
+            tl = generate_timeline(seed, profile)
+            state, events, cfg = tl.build("equilibrium_batch")
+            snap = reg.snapshot("batch.chunks")
+            with obs.tracing():
+                try:
+                    lane = run_lifecycle(state, events, cfg,
+                                         "equilibrium_batch",
+                                         planner_kwargs={
+                                             "legality_cache": True})
+                except OracleFailure as e:
+                    fail(f"fuzz with the cache, {label}: {e}")
+            chunks = int(reg.deltas_since(snap).get("batch.chunks", 0))
+            steps += chunks * max(1, int(tl.sim["moves_per_tick"]))
+            for engine, (want_moves, want_json) in FUZZ_LANES[label].items():
+                check(lane.moves == want_moves
+                      and lane.metrics_json == want_json,
+                      f"fuzz with the cache, {label}: differs from phase "
+                      f"fuzz's {engine} lane")
+            timelines += 1
+            moves += lane.planned_moves
+    launches = select_move.launch_counts()
+    check(launches == {"select_rows": steps, "masked_select": 0}
+          and select_move.cached_launch_count() == steps and steps > 0,
+          f"fuzz with the cache: K1 launched {launches} "
+          f"({select_move.cached_launch_count()} cached) over {steps} steps")
+    return {"timelines": timelines, "moves": moves, "steps": steps,
+            "k1_launches": launches["select_rows"],
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_batch_optins(card: str, base, k1: dict) -> dict:
+    """The batch engine's opt-ins on the card: K1's cached instantiation
+    (:func:`k1_cached`), the small-cluster matrix (:func:`optin_matrix`),
+    cluster B to convergence with the cache on an exact copy of phase 3's
+    cluster under a tracer (``planner.tail.B1x.batch-cache``'s moves,
+    histogram and certificate counters, the reference engine's counters
+    of ``tests/fixtures/batch_counters_cluster_b.json``, ``select_rows``
+    once a step, every launch cached), plan seconds with the cache and the
+    pipeline on and off in turns, a profiled first chunk with the cache,
+    and the fuzz sweep with the cache (:func:`optin_fuzz`)."""
+    from repro_torch.kernels import select_move
+    cached = k1_cached(card, base, k1)
+    matrix = optin_matrix()
+    emit("batch_optins_matrix", **matrix)
+
+    ref = json.loads(REF_COUNTERS.read_text())
+    want = ref["runs"]["legality_cache=True"]
+    bench = bench_row("planner.tail.B1x.batch-cache")
+    cfg = {k: v for k, v in ref["config"].items() if k != "source_block"}
+    select_move.reset_launch_count()
+    got = counted(exact_copy(base), legality_cache=True, device="cuda",
+                  **cfg)
+    launches = select_move.launch_counts()
+    steps = got["chunks"] * cfg["chunk"]
+    check(len(got["moves"]) == bench["converged"] == want["moves"],
+          f"cluster B with the cache: {len(got['moves'])} moves")
+    check(got["tried_hist"] == bench["tried_hist"]
+          and got["bound_hits"] == bench["bound_hits"] == want["bound_hits"]
+          and got["pruned_sources"] == bench["pruned_sources"]
+          == want["pruned_sources"],
+          f"cluster B with the cache: histogram or certificate counters "
+          f"{got['bound_hits']} / {got['pruned_sources']}")
+    differ = {key: (got[key], want[f"batch.{key}"]) for key in OPTIN_COUNTERS
+              if got[key] != want[f"batch.{key}"]}
+    check(not differ, f"cluster B with the cache: counters differ from the "
+                      f"reference engine's: {differ}")
+    check(launches == {"select_rows": steps, "masked_select": 0}
+          and select_move.cached_launch_count() == steps,
+          f"cluster B with the cache: K1 launched {launches} "
+          f"({select_move.cached_launch_count()} cached) over {steps} steps")
+
+    # plan seconds in turns, untraced: the defaults (no cache, pipelined),
+    # the cache on, the pipeline off
+    configs = {f"cache={c},pipeline={p}": dict(legality_cache=c, pipeline=p)
+               for c, p in ((False, True), (True, True), (False, False))}
+    secs = {name: [] for name in configs}
+    for _ in range(OPTIN_TURNS):
+        for name, kw in configs.items():
+            rec = counted(exact_copy(base), traced=False, device="cuda", **kw)
+            check(len(rec["moves"]) == want["moves"],
+                  f"cluster B {name}: {len(rec['moves'])} moves")
+            secs[name].append(rec["seconds"])
+    prof = profile_chunk(exact_copy(base), card, legality_cache=True)
+    fz = optin_fuzz()
+    out = {"card": card, "k1_cached": {k: v for k, v in cached.items()
+                                       if k != "turns"},
+           "matrix": matrix,
+           "cluster_b": {
+               "moves": len(got["moves"]), "chunks": got["chunks"],
+               "host_syncs": got["host_syncs"],
+               "k1_launches": launches["select_rows"],
+               "k1_cached_launches": steps,
+               "counters": {key: got[key] for key in OPTIN_COUNTERS},
+               "bound_hits": got["bound_hits"],
+               "pruned_sources": got["pruned_sources"],
+               "traced_seconds": got["seconds"]},
+           "plan_s_median": {name: float(np.median(v))
+                             for name, v in secs.items()},
+           "plan_s_turns": secs, "profile_with_cache": prof, "fuzz": fz}
+    emit("batch_optins", **out)
+    out["k1_cached_launches"] = steps
     return out
 
 
@@ -2772,6 +3115,8 @@ def main() -> int:
     phase_lm_parity(card, "mamba2-2.7b", 4, (0, 4), "mamba2_parity")
     pre_m = phase_prefill(card, "mamba2-2.7b", 0,
                           {"tensor_core": 64, "simt": 0}, "mamba2_prefill")
+    # last, so that every earlier phase runs as it did before the opt-ins
+    optins = phase_batch_optins(card, built_b[0], k1)
     # the entry's launches and times are the tensor-core variant's at the
     # zamba2 prefill (N 64); its N 128 instantiation's at mamba2's shape
     # and the SIMT variant's there (float32, off both prefills) stand
@@ -2830,9 +3175,27 @@ def main() -> int:
                 "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms",
                 "library_device_ms")}})
+    # the cached instantiation: its launches on cluster B's plan with the
+    # cache (phase batch_optins), its times at cluster B's first step
+    k1_cached_entry = kernel_entry("select_rows_cached", "masked_select.cu",
+                                   "src/repro/kernels/select_move.py:44",
+                                   optins["k1_cached_launches"],
+                                   optins["k1_cached"])
+    k1_cached_entry.update(
+        variant="cached instantiation (legality_cache=True)",
+        launches_by_path={
+            "cluster B plan with the cache": optins["k1_cached_launches"],
+            "fuzz sweep with the cache":
+                optins["fuzz"]["k1_launches"]},
+        hit={"ms": optins["k1_cached"]["hit_ms"],
+             "device_ms": optins["k1_cached"]["hit_device_ms"]},
+        uncached_at_same_step={
+            "ms": optins["k1_cached"]["uncached_ms"],
+            "device_ms": optins["k1_cached"]["uncached_device_ms"]})
     emit("profiles", sessions=PROFILE_LOG)
     print(json.dumps({"kernels": [
         k1_entry,
+        k1_cached_entry,
         kernel_entry("flash_attention", "flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:87",
                      pre["k2_launches"], k2),

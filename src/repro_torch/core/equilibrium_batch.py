@@ -65,8 +65,21 @@ index and a positive out-of-range one is a device-side assert.
   fresh build's bitwise, apart from the row table's padding width and
   source-bound certificates kept across a foreign movement.
 
-Not in this slice: the legality cache, device telemetry and pipelined
-dispatch.
+* **The opt-ins** keep the reference's geometry (``source_block`` 1,
+  ``row_block`` rows a block), so each counter they feed is the
+  reference's.  The walk the reference would have made — which
+  (source position, row block) tiles its ``lax.while_loop`` visits — is
+  a closed form of the step's own results (:meth:`_Chunk.walked`).
+  ``legality_cache`` keeps, per compacted source position, every row's
+  candidate mask (every criterion but the variance test) tagged with its
+  device and per-block clean bits; K1's cached instantiation reads the
+  clean blocks of a position whose tag matches and evaluates the rest,
+  and each move repairs the cache (dirty bits for the endpoints' slots
+  and the moved PG's blocks, and the endpoints' columns recomputed).
+  Device telemetry (tiles walked, tiles holding a candidate, cache hits
+  and misses) is issued only while a tracer is installed and rides the
+  chunk's one fetch.  ``pipeline`` issues chunk *i+1* before the host
+  turns chunk *i* into moves, under the reference's gate.
 """
 
 from __future__ import annotations
@@ -88,6 +101,7 @@ from .tail import tail_flush, tail_record, tail_stats, tail_terminal
 from .. import obs as _obs
 from ..kernels.ops import bind_select_rows
 from ..device import resolve_device
+from ..kernels.ref import candidate_masks
 from ..kernels.select_move import compact_parked
 from ..obs import registry as _obs_registry
 
@@ -153,15 +167,19 @@ class _Chunk:
     ``dyn`` (mutated in place): used, util (n,) f64; us, usq (1,) f64 —
     the maintained moments; acting (n_pg, S); pool_counts (P, n) f64;
     dst_ok (P, n) bool; rows_on (n, r_cap) with -1 padding; nrows,
-    order (n,); pruned (n,) bool.  ``const``: cap, dev_class, dev_in,
-    dev_domain (L, n), the per-shard tables sh_* and ideal (P, n).
-    Integer tensors are int64 throughout (torch's index type).
+    order (n,); pruned (n,) bool; with the legality cache, c_dev (k,) —
+    the device each source position's entry was evaluated for, -1 none —
+    c_ok (k, r_cap, n) bool — the entries' candidate masks — and c_clean
+    (k, r_cap / rb) bool — the blocks of rows whose mask is current.
+    ``const``: cap, dev_class, dev_in, dev_domain (L, n), the per-shard
+    tables sh_* and ideal (P, n).  Integer tensors are int64 throughout
+    (torch's index type).
     """
 
     def __init__(self, dyn: dict, const: dict, scal: dict, *, k: int,
-                 bounds: bool):
+                 bounds: bool, rb: int = 8, cache: bool = False):
         self.dyn, self.const, self.scal = dyn, const, scal
-        self.k, self.bounds = k, bounds
+        self.k, self.bounds, self.rb, self.cache = k, bounds, rb, cache
         dev = const["cap"].device
         n = const["cap"].shape[0]
         self.dev_iota = torch.arange(n, device=dev)
@@ -170,10 +188,27 @@ class _Chunk:
                                                scal["headroom"])
         # K1 bound to this carry (checked once; a re-pad rebinds it)
         self.select_rows = bind_select_rows(self.cap_lim, dyn, const, scal)
+        if cache:
+            self.fresh_cache()
 
     @property
     def r_cap(self) -> int:
         return self.dyn["rows_on"].shape[1]
+
+    def fresh_cache(self) -> None:
+        """An empty legality cache for the current r_cap: no entry tagged,
+        nothing clean, so the first walk of every tile evaluates it.
+        ``c_new`` is where K1 writes the rows it evaluates; only the
+        blocks the walk reached move into ``c_ok``, so a position the walk
+        did not reach keeps its entry for the device it was tagged with."""
+        k, r_cap, dev = self.k, self.r_cap, self.dev_iota.device
+        n = self.dev_iota.shape[0]
+        self.dyn["c_dev"] = torch.full((k,), -1, dtype=I64, device=dev)
+        self.dyn["c_ok"] = torch.zeros((k, r_cap, n), dtype=torch.bool,
+                                       device=dev)
+        self.dyn["c_clean"] = torch.zeros((k, r_cap // self.rb),
+                                          dtype=torch.bool, device=dev)
+        self.c_new = torch.zeros_like(self.dyn["c_ok"])
 
     # -- selection -----------------------------------------------------------
 
@@ -189,17 +224,46 @@ class _Chunk:
         return order_k, order_k, torch.full((), self.k,
                                             device=self.pos.device)
 
-    def select(self, active: torch.Tensor):
+    def walked(self, p, ri, n_avail, src_order, active) -> torch.Tensor:
+        """(k, r_cap / rb) bool: the (source position, row block) tiles
+        the reference's walk visits in this step (source_block 1), from
+        the step's results: the winner's position ``p`` (k: none) and its
+        first legal row ``ri``.  Each position before the winner (every
+        available one when nothing wins) walks all its blocks, at least
+        one; the winner walks up to the block of ``ri``; with no source
+        available only tile (0, 0) is walked; an inactive step walks
+        nothing."""
+        rb, pos = self.rb, self.pos[:, None]
+        blk = torch.arange(self.r_cap // rb, device=pos.device)[None, :]
+        nrows = self.dyn["nrows"][src_order]
+        blocks = ((nrows + rb - 1) // rb).clamp(min=1)[:, None]
+        before = (pos < torch.minimum(p, n_avail)) & (blk < blocks)
+        winner = (pos == p) & (blk <= ri // rb)
+        first = (n_avail == 0) & (pos == 0) & (blk == 0)
+        return (before | winner | first) & active
+
+    def select(self, active: torch.Tensor, tel: torch.Tensor | None = None):
         """One §3.1 planning step's selection over the full candidate
-        tensor; updates ``pruned`` (where ``active``) and returns
-        (found, row, src, dst, tried, skipped), each (1,)."""
+        tensor; updates ``pruned`` (where ``active``), the legality cache
+        and the telemetry ``tel`` (where given) and returns (found, row,
+        src, dst, tried, skipped), each (1,)."""
         d, c, s = self.dyn, self.const, self.scal
         k, r_cap = self.k, self.r_cap
         pos = self.pos
         order_k, src_order, n_avail = self.sources()
         # every criterion and the reduction in one K1 launch; ``any_row``
         # is already False for parked sources
-        any_row, dst, cand_src = self.select_rows(src_order, n_avail)
+        if self.cache:
+            tag = d["c_dev"] == src_order
+            hit_blk = tag[:, None] & d["c_clean"]
+            any_row, dst, cand_src, cand_row = self.select_rows(
+                src_order, n_avail, cache_ok=d["c_ok"], hit_blk=hit_blk,
+                rb=self.rb, cache_out=self.c_new, cand_row=True)
+        elif tel is not None:
+            any_row, dst, cand_src, cand_row = self.select_rows(
+                src_order, n_avail, cand_row=True)
+        else:
+            any_row, dst, cand_src = self.select_rows(src_order, n_avail)
         any_row = any_row.view(k, r_cap)
         dst = dst.view(k, r_cap)
         rows_k = d["rows_on"][src_order]                       # (k, R)
@@ -225,7 +289,35 @@ class _Chunk:
             pr[src_order] = pr[src_order] | prunable    # src_order: distinct
         else:
             rank = jw
+        if self.cache or tel is not None:
+            walked = self.walked(p, ri, n_avail, src_order, active)
+            if tel is not None:
+                nb = r_cap // self.rb
+                cand_blk = cand_row.view(k, nb, self.rb).any(dim=2)
+                counts = [walked.sum(), (walked & cand_blk).sum()]
+                if self.cache:
+                    counts += [(walked & hit_blk).sum(),
+                               (walked & ~hit_blk).sum()]
+                tel[:len(counts)] += torch.stack(counts)
+            if self.cache:
+                self._walk_cache(walked, tag, hit_blk, src_order)
         return found, row, win_dev, win_dst, rank + 1, rank - jw
+
+    def _walk_cache(self, walked, tag, hit_blk, src_order) -> None:
+        """The cache after the reference's walk: each tile walked on a
+        miss takes the mask K1 just evaluated; a walked position is tagged
+        with its source, and its clean blocks are those it kept under the
+        same tag and the ones walked."""
+        d, k, rb = self.dyn, self.k, self.rb
+        c_ok, c_clean, c_dev = d["c_ok"], d["c_clean"], d["c_dev"]
+        shape = (k, -1, rb, c_ok.shape[2])
+        take = (walked & ~hit_blk)[:, :, None, None]
+        c_ok.view(shape).copy_(torch.where(take, self.c_new.view(shape),
+                                           c_ok.view(shape)))
+        slot = walked.any(dim=1)
+        c_clean.copy_(torch.where(slot[:, None],
+                                  (tag[:, None] & c_clean) | walked, c_clean))
+        c_dev.copy_(torch.where(slot, src_order, c_dev))
 
     # -- apply ---------------------------------------------------------------
 
@@ -313,23 +405,49 @@ class _Chunk:
             inval = touch | crossed | (flip & holds_pool) | bind
             pr = d["pruned"]
             pr.copy_(torch.where(ok, pr & ~inval, pr))
+        if self.cache:
+            self._repair_cache(ok, pgi, src, dst, both)
+
+    def _repair_cache(self, ok, pgi, src, dst, both) -> None:
+        """Keep every clean cache block equal to a fresh evaluation after
+        a move (the reference's ``apply_move`` cache repair).  A move
+        changes a candidate mask's inputs only at its two endpoints and in
+        the moved PG's acting set: the blocks of entries tagged with an
+        endpoint (their row lists shifted) and the blocks holding a row of
+        the moved PG go dirty, and the endpoints' two columns of every
+        entry are evaluated again."""
+        d, c = self.dyn, self.const
+        k, rb = self.k, self.rb
+        c_dev, c_ok, c_clean = d["c_dev"], d["c_ok"], d["c_clean"]
+        tags = c_dev.clamp(min=0)
+        rows_c = d["rows_on"][tags]                              # (k, R)
+        has_pg = (rows_c >= 0) & (c["sh_pg"][rows_c.clamp(min=0)] == pgi)
+        dirty = (((c_dev == src) | (c_dev == dst))[:, None]
+                 | has_pg.view(k, -1, rb).any(dim=2))
+        c_clean.copy_(torch.where(ok, c_clean & ~dirty, c_clean))
+        cols = candidate_masks(tags, rows_c, self.cap_lim, d, c, self.scal,
+                               devs=both)["cand"]                # (k, R, 2)
+        c_ok[:, :, both] = torch.where(ok, cols, c_ok[:, :, both])
 
     # -- chunk ---------------------------------------------------------------
 
-    def run(self, m: int) -> torch.Tensor:
+    def run(self, m: int, telemetry: bool = False) -> torch.Tensor:
         """Up to ``m`` steps; returns the packed int64 result the host
         fetches: the (m, 5) move block (row, src, dst, sources_tried,
         bound_skips, or -1 sentinels) flattened, then done, overflow,
-        max(nrows) and the (n,) source-bound certificates as 0 / 1 (the
-        host keeps them for an absorption that may carry them over)."""
+        max(nrows), the (n,) source-bound certificates as 0 / 1 (the host
+        keeps them for an absorption that may carry them over) and, with
+        ``telemetry``, the chunk's (4,) device telemetry: tiles walked,
+        tiles holding a candidate, cache hits, cache misses."""
         dev = self.dev_iota.device
         done = torch.zeros(1, dtype=torch.bool, device=dev)
         overflow = torch.zeros(1, dtype=torch.bool, device=dev)
         moves = torch.empty((m, 5), dtype=I64, device=dev)
+        tel = torch.zeros(4, dtype=I64, device=dev) if telemetry else None
         nrows = self.dyn["nrows"]
         for t in range(m):
             active = ~(done | overflow)
-            found, row, src, dst, tried, skipped = self.select(active)
+            found, row, src, dst, tried, skipped = self.select(active, tel)
             found &= active
             # a full destination row list would drop a shard: stop and let
             # the host re-pad (never hit when r_cap >= max rows + chunk)
@@ -340,8 +458,9 @@ class _Chunk:
                                                   skipped]), -1)
             done |= active & ~found
             overflow |= ovf
-        return torch.cat([moves.flatten(), done.to(I64), overflow.to(I64),
-                          nrows.max().view(1), self.dyn["pruned"].to(I64)])
+        out = [moves.flatten(), done.to(I64), overflow.to(I64),
+               nrows.max().view(1), self.dyn["pruned"].to(I64)]
+        return torch.cat(out if tel is None else [*out, tel])
 
 
 # ---------------------------------------------------------------------------
@@ -386,21 +505,33 @@ class BatchPlanner:
       sorting before an existing one).
     """
 
-    #: per-device row tables are padded in multiples of this many rows
-    ROW_ALIGN = 8
     #: pending-delta backlog above which the stream is dropped: rebuild
     PENDING_CAP = 8192
 
     def __init__(self, state: ClusterState,
                  cfg: EquilibriumConfig | None = None, chunk: int = 64,
+                 source_block: int = 1, row_block: int = 8,
                  row_capacity: int | None = None,
+                 legality_cache: bool = False,
                  source_bounds: bool = True,
+                 pipeline: bool = True,
                  device=None):
+        if source_block != 1:
+            raise ValueError(f"source_block={source_block!r}: the PyTorch "
+                             f"batch engine walks one source a block "
+                             f"(source_block=1)")
         self.state = state
         self.cfg = cfg or EquilibriumConfig()
         self.chunk = chunk
         self.row_capacity = row_capacity
+        self.legality_cache = legality_cache
         self.source_bounds = source_bounds
+        # pipelined dispatch: chunk i+1 is issued before the host turns
+        # chunk i into moves, under _chunk_loop's gate
+        self.pipeline = pipeline
+        # rows a block: the row table's alignment and the legality cache's
+        # and the telemetry's tile height
+        self._rb = max(1, row_block)
         self.device = resolve_device(device, "equilibrium_batch")
         self._dense = None
         self._step: _Chunk | None = None
@@ -437,8 +568,8 @@ class BatchPlanner:
     # -- dense-state lifecycle ----------------------------------------------
 
     def _round_cap(self, n: int) -> int:
-        a = self.ROW_ALIGN
-        return max(a, -(-int(n) // a) * a)
+        rb = self._rb
+        return max(rb, -(-int(n) // rb) * rb)
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -504,7 +635,8 @@ class BatchPlanner:
         self._pruned_mask = pruned.copy()    # the CPU carry shares memory
         self._pruned = int(pruned.sum())
         return _Chunk(dyn, const, scal, k=min(cfg.k, max(n_dev, 1)),
-                      bounds=self.source_bounds)
+                      bounds=self.source_bounds, rb=self._rb,
+                      cache=self.legality_cache)
 
     def _build(self) -> None:
         """Full rebuild of the device carry from ``self.state``."""
@@ -881,10 +1013,9 @@ class BatchPlanner:
         self._engine_stats(snap, stats_out)
 
     def _engine_stats(self, snap: dict, stats_out: dict) -> None:
-        # no legality cache and no pipelined dispatch in this engine yet
-        stats_out["legality_cache"] = False
+        stats_out["legality_cache"] = self.legality_cache
         stats_out["source_bounds"] = self.source_bounds
-        stats_out["pipeline"] = False
+        stats_out["pipeline"] = self.pipeline
         self._registry_stats(snap, stats_out)
 
     def _reconcile(self, raw_moves, record_trajectory: bool,
@@ -929,13 +1060,14 @@ class BatchPlanner:
         stats_out["host_syncs"] = int(d.get("batch.host_syncs", 0))
         stats_out["jit_recompiles"] = 0
         stats_out["stash_moves"] = int(d.get("batch.stash_moves", 0))
-        stats_out["cache_hits"] = 0
-        stats_out["cache_misses"] = 0
+        stats_out["cache_hits"] = int(d.get("batch.cache_hits", 0))
+        stats_out["cache_misses"] = int(d.get("batch.cache_misses", 0))
         stats_out["absorbed_deltas"] = self._absorbed_deltas
 
     def _repad(self) -> None:
         """Widen the per-device row table to max rows + chunk (one sync).
-        The source bounds say nothing about row geometry and survive."""
+        The source bounds say nothing about row geometry and survive; the
+        legality cache is shaped by r_cap and starts empty."""
         reg = _obs_registry()
         reg.inc("batch.repads")
         _obs.point("batch.repad", cat="batch", r_cap=self._step.r_cap)
@@ -948,13 +1080,31 @@ class BatchPlanner:
         for i, nd in enumerate(nrows_np.tolist()):
             rows[i, :nd] = rows_np[i, :nd]
         dyn["rows_on"] = torch.as_tensor(rows, device=self.device)
+        if self.legality_cache:
+            self._step.fresh_cache()
+
+    def _record_chunk_tel(self, reg, tel: np.ndarray) -> None:
+        """Fold one chunk's fetched device telemetry into the registry."""
+        reg.inc("batch.tiles_walked", int(tel[0]))
+        reg.inc("batch.cand_tiles", int(tel[1]))
+        if self.legality_cache:
+            reg.inc("batch.cache_hits", int(tel[2]))
+            reg.inc("batch.cache_misses", int(tel[3]))
 
     def _chunk_loop(self, budget: int
                     ) -> list[tuple[int, int, int, int, int, float]]:
         """Run chunks until ``budget`` raw moves are on hand (stashing any
         overshoot), the device reports convergence, or a re-pad is
         needed.  ``self._terminal_seconds`` collects the wall time of
-        chunks that emit no moves (the terminal fruitless scan)."""
+        chunks that emit no moves (the terminal fruitless scan).
+
+        With ``pipeline`` on, chunk *i+1* is issued as soon as chunk
+        *i*'s fetched scalars prove that a full chunk is needed (not done,
+        no overflow, the budget and the row capacity both leave room): it
+        is the chunk the next iteration would issue, so the sequence is
+        unchanged.  A chunk's seconds are its issue and its fetch,
+        wherever the issue ran.  Telemetry rides each chunk while a tracer
+        is installed."""
         self._terminal_seconds = 0.0
         raw: list[tuple[int, int, int, int, int, float]] = []
         take = min(len(self._stash), budget)
@@ -964,23 +1114,53 @@ class BatchPlanner:
         if take:
             reg.inc("batch.stash_replayed", take)
         m = self.chunk
+        n = self._step.dev_iota.shape[0]
+        telemetry = _obs.enabled()
+        pending = None          # (packed result, dispatch seconds) of i+1
         while len(raw) < budget and not self._done:
             reg.inc("batch.chunks")
             with _obs.span("batch.chunk", cat="batch") as sp:
                 t0 = time.perf_counter()
-                out = self._step.run(m)
+                if pending is None:
+                    out = self._step.run(m, telemetry)
+                    dispatch_s = time.perf_counter() - t0
+                    overlapped = False
+                else:
+                    out, dispatch_s = pending
+                    pending = None
+                    overlapped = True
                 t1 = time.perf_counter()
                 packed = _fetch(out)
                 dt = time.perf_counter() - t0
+                sync_s = time.perf_counter() - t1
+                if overlapped:
+                    # its issue ran inside the previous chunk, after that
+                    # chunk's time was taken: count it here, once
+                    dt += dispatch_s
                 moves_np = packed[:5 * m].reshape(m, 5)
                 done, overflow = bool(packed[5 * m]), bool(packed[5 * m + 1])
                 nmax = int(packed[5 * m + 2])
-                self._pruned_mask = packed[5 * m + 3:] != 0
+                self._pruned_mask = packed[5 * m + 3:5 * m + 3 + n] != 0
                 self._pruned = int(self._pruned_mask.sum())
                 emitted = moves_np[moves_np[:, 0] >= 0]
+                if (self.pipeline and not done and not overflow
+                        and len(raw) + len(emitted) < budget
+                        and nmax + m <= self._step.r_cap):
+                    # no break and no re-pad below: the next iteration
+                    # runs a full chunk, so issue it now
+                    td = time.perf_counter()
+                    pending = (self._step.run(m, telemetry),
+                               time.perf_counter() - td)
+                    reg.inc("batch.chunks_overlapped")
+                if telemetry:
+                    self._record_chunk_tel(reg, packed[5 * m + 3 + n:])
+                if self.legality_cache:
+                    # each applied move repaired the cache in place
+                    reg.inc("batch.cache_repairs", len(emitted))
                 sp.set(emitted=len(emitted), done=done, overflow=overflow,
-                       dispatch_s=round(t1 - t0, 6),
-                       sync_s=round(time.perf_counter() - t1, 6))
+                       overlapped=overlapped,
+                       dispatch_s=round(dispatch_s, 6),
+                       sync_s=round(sync_s, 6))
             if len(emitted) == 0 and done and not overflow:
                 self._terminal_seconds += dt
             per_s = dt / max(len(emitted), 1)
@@ -999,7 +1179,7 @@ class BatchPlanner:
             if done:
                 self._done = True
                 break
-            if overflow or nmax + self.chunk > self._step.r_cap:
+            if overflow or nmax + m > self._step.r_cap:
                 self._repad()
         return raw
 

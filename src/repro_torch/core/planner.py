@@ -314,25 +314,31 @@ class BatchEquilibriumPlanner:
     cold-starts).  ``warm=False`` forces a cold start on every call.
     ``device=None`` runs on the CUDA card and raises when there is none;
     ``device="cpu"`` runs the same engine with the kernels' plain
-    versions.
+    versions.  ``legality_cache``, ``pipeline`` (on by default) and
+    ``row_block`` are the engine's opt-ins; ``source_block`` other than 1
+    raises ``ValueError``.
     """
 
     name = "equilibrium_batch"
     engine = "batch"                     # PlanResult.stats["engine"]
 
     def __init__(self, cfg: EquilibriumConfig | None = None, chunk: int = 64,
+                 source_block: int = 1, row_block: int = 8,
                  row_capacity: int | None = None, warm: bool = True,
                  legality_cache: bool = False, source_bounds: bool = True,
-                 device=None):
-        if legality_cache:
-            raise ValueError("legality_cache is not implemented by the "
-                             "PyTorch batch engine yet")
+                 pipeline: bool = True, device=None):
+        if source_block != 1:
+            raise ValueError(f"source_block={source_block!r}: the PyTorch "
+                             f"batch engine walks one source a block "
+                             f"(source_block=1)")
         self.cfg = cfg or EquilibriumConfig()
         self.warm = warm
         self.device = resolve_device(device, "equilibrium_batch")
-        self._engine_kwargs = dict(chunk=chunk, row_capacity=row_capacity,
+        self._engine_kwargs = dict(chunk=chunk, row_block=row_block,
+                                   row_capacity=row_capacity,
+                                   legality_cache=legality_cache,
                                    source_bounds=source_bounds,
-                                   device=self.device)
+                                   pipeline=pipeline, device=self.device)
         self._impl = None                # BatchPlanner, bound lazily
 
     def _bind(self, state: ClusterState):

@@ -35,7 +35,17 @@
 //              stable (util, index) order);
 //   valid      candidate and the exact float64 variance test.
 // Outputs: any and dst per (s, r) as above (any only for the available
-// sources, s < n_avail), and cand_src[s]: some row of s has a candidate.
+// sources, s < n_avail), cand_src[s]: some row of s has a candidate, and
+// (where the caller passes it) cand_row[s, r]: row r of s has one.
+//
+// The legality cache (the batch engine's opt-in): a second instantiation
+// takes cache_ok (k, R, n) candidate bytes and hit_blk (k, R / rb), one
+// flag per block of rb rows.  A warp whose row lies in a hit block reads
+// the row's n candidate bytes instead of evaluating the static and
+// candidate predicates; any other row is evaluated as above and its n
+// bytes are written to cache_out (which may be cache_ok itself).  The
+// variance test and the fold run on the candidates as read, so a cache
+// that holds the fresh evaluation changes no output.
 // The expressions are those of repro_torch/core/legality.py in its operand
 // order, each float64 add, subtract, multiply and divide written as the
 // _rn intrinsic: the build's flags leave FMA contraction on, and the
@@ -114,11 +124,16 @@ namespace cg = cooperative_groups;
   X(uint8_t*, any_out)             /* (k, R) */                             \
   X(int32_t*, dst_out)             /* (k, R) */                             \
   X(uint8_t*, cand_src)            /* (k,) */                               \
+  X(uint8_t*, cand_row)            /* (k, R), or null */                    \
+  X(const uint8_t*, cache_ok)      /* (k, R, n) cached candidates, or null */ \
+  X(const uint8_t*, hit_blk)       /* (k, R / rb) blocks read from it */    \
+  X(uint8_t*, cache_out)           /* (k, R, n) where the misses go */      \
   X(long long, k)                                                           \
   X(long long, R)                                                           \
   X(long long, n)                                                           \
   X(long long, S)                                                           \
-  X(long long, L)
+  X(long long, L)                                                           \
+  X(long long, rb)                 /* rows a cache block (cache only) */
 
 struct SelectRowsArgs {
 #define SELECT_ROWS_FIELD(type, name) type name;
@@ -227,6 +242,40 @@ __device__ __forceinline__ double ddiv(double x, double y) {
   return __ddiv_rn(x, y);
 }
 
+// What the source's row leaves behind when it goes: the step's sums of
+// (utilization change) and (squared-utilization change) at the source.
+struct SourceDelta {
+  double dsum_s, dsq_s;
+};
+__device__ __forceinline__ SourceDelta source_delta(double used_s,
+                                                    double cap_s, double u_s,
+                                                    double usq_src,
+                                                    double size) {
+  const double v_s = ddiv(dsub(used_s, size), cap_s);
+  return {dsub(v_s, u_s), dsub(dmul(v_s, v_s), usq_src)};
+}
+
+// legality.variance_improves for moving the row onto device d (its
+// utilization ud, its fill with the row, its capacity) and, where the
+// variance improves, the fold of d into the lane's emptiest legal
+// destination: ascending d, so a tie keeps the lower index.
+__device__ __forceinline__ void fold_if_variance_improves(
+    int d, double ud, double fill, double cap_d, SourceDelta sd, double us,
+    double usq, double nf, double old_var, double neg_min, bool& found,
+    double& best, int& best_idx) {
+  const double v_d = ddiv(fill, cap_d);
+  const double dsum = dadd(sd.dsum_s, dsub(v_d, ud));
+  const double dsq = dadd(sd.dsq_s, dsub(dmul(v_d, v_d), dmul(ud, ud)));
+  const double m = ddiv(dadd(us, dsum), nf);
+  const double new_var = dsub(ddiv(dadd(usq, dsq), nf), dmul(m, m));
+  if (!(dsub(new_var, old_var) < neg_min)) return;
+  found = true;
+  if (ud < best) {
+    best = ud;
+    best_idx = d;
+  }
+}
+
 constexpr int kSelWarps = 8;
 constexpr int kSelThreads = kSelWarps * kWarp;
 constexpr int kMaxCluster = 8;  // the portable cluster size
@@ -243,7 +292,7 @@ __host__ __device__ constexpr long long slot_bytes(long long S) {
   return kSelWarps * 2 * S * 4;
 }
 
-template <bool kStaged>
+template <bool kStaged, bool kCached>
 __global__ void __launch_bounds__(kSelThreads)
 select_rows_kernel(const SelectRowsArgs a) {
   // int32 ids in shared memory, the carry's int64 ones in device memory
@@ -312,16 +361,19 @@ select_rows_kernel(const SelectRowsArgs a) {
   for (int r = blockIdx.x * kSelWarps + warp; r < R;
        r += gridDim.x * kSelWarps) {
     const long long row = a.rows_on[src * R + r];  // warp-uniform
+    const long long at = static_cast<long long>(js) * R + r;
+    // the cached instantiation reads the candidates of a hit block's rows
+    const bool hit = kCached && a.hit_blk[at / a.rb] != 0;
     long long pool = 0;
     bool live = false;  // a real row whose source-count criterion holds
-    if (row >= 0) {
+    if (row >= 0 && !hit) {
       pool = a.sh_pool[row];
       const double cnt = a.pool_counts[pool * n + src];
       const double idl = a.ideal[pool * n + src];
       live = fabs(dsub(dsub(cnt, 1.0), idl)) <=
              dadd(fabs(dsub(cnt, idl)), slack);
     }
-    bool found = false;
+    bool found = false, row_cand = false;
     double best = CUDART_INF;
     int best_idx = lane < n ? lane : INT32_MAX;
     if (live) {
@@ -339,42 +391,55 @@ select_rows_kernel(const SelectRowsArgs a) {
         w_peer[j] = in_step ? static_cast<int>(dom[act < 0 ? 0 : act]) : -1;
       }
       __syncwarp();
-      const double v_s = ddiv(dsub(used_s, size), cap_s);
-      const double dsum_s = dsub(v_s, u_s);
-      const double dsq_s = dsub(dmul(v_s, v_s), usq_src);
+      const SourceDelta sd = source_delta(used_s, cap_s, u_s, usq_src, size);
       const uint8_t* crit = a.dst_ok + pool * n;
+      uint8_t* fresh = kCached ? a.cache_out + at * n : nullptr;
       for (int d = lane; d < n; d += kWarp) {
         const double ud = util[d];
         const double fill = dadd(used[d], size);
         if (!(dev_in[d] && d != src && (ud < u_s || (ud == u_s && d < src)) &&
               (cls < 0 || dev_class[d] == cls) && crit[d] &&
-              fill <= cap_lim[d]))
+              fill <= cap_lim[d])) {
+          if constexpr (kCached) fresh[d] = 0;
           continue;
+        }
         const int dom_d = static_cast<int>(dom[d]);
         bool taken = false;
         for (int j = 0; j < S; ++j)
           taken |= (w_act[j] == d) | (w_peer[j] == dom_d);
+        if constexpr (kCached) fresh[d] = taken ? 0 : 1;
         if (taken) continue;
-        any_cand = true;
-        // legality.variance_improves
-        const double v_d = ddiv(fill, cap[d]);
-        const double dsum = dadd(dsum_s, dsub(v_d, ud));
-        const double dsq = dadd(dsq_s, dsub(dmul(v_d, v_d), dmul(ud, ud)));
-        const double m = ddiv(dadd(us, dsum), nf);
-        const double new_var = dsub(ddiv(dadd(usq, dsq), nf), dmul(m, m));
-        if (!(dsub(new_var, old_var) < neg_min)) continue;
-        found = true;
-        if (ud < best) {  // ascending d: a tie keeps the lower index
-          best = ud;
-          best_idx = d;
+        row_cand = true;
+        fold_if_variance_improves(d, ud, fill, cap[d], sd, us, usq, nf,
+                                  old_var, neg_min, found, best, best_idx);
+      }
+    } else if (kCached) {
+      // a hit block's row: its candidates as cached (a padding row's
+      // bytes included, its size 0); any other row has none, and its n
+      // bytes of the cache are written as such
+      const uint8_t* cached = a.cache_ok + at * n;
+      uint8_t* fresh = a.cache_out + at * n;
+      const double size = row >= 0 ? a.sh_size[row] : 0.0;
+      const SourceDelta sd = source_delta(used_s, cap_s, u_s, usq_src, size);
+      for (int d = lane; d < n; d += kWarp) {
+        if (!hit) {
+          fresh[d] = 0;
+          continue;
         }
+        if (!cached[d]) continue;
+        row_cand = true;
+        fold_if_variance_improves(d, util[d], dadd(used[d], size), cap[d], sd,
+                                  us, usq, nf, old_var, neg_min, found, best,
+                                  best_idx);
       }
     }
+    any_cand |= row_cand;
+    const bool row_any = __any_sync(kFull, row_cand);
     warp_fold_min(found, best, best_idx);
     if (lane == 0) {
-      const long long out = static_cast<long long>(js) * R + r;
-      a.any_out[out] = found && avail ? 1 : 0;
-      a.dst_out[out] = best_idx;
+      a.any_out[at] = found && avail ? 1 : 0;
+      a.dst_out[at] = best_idx;
+      if (a.cand_row) a.cand_row[at] = row_any ? 1 : 0;
     }
   }
 
@@ -391,7 +456,7 @@ select_rows_kernel(const SelectRowsArgs a) {
 
 constexpr int kMaxDevices = 64;
 
-template <bool kStaged>
+template <bool kStaged, bool kCached>
 int launch_select_rows(const SelectRowsArgs& a, long long smem,
                        cudaStream_t stream) {
   // the dynamic shared memory each device already allows the kernel: the
@@ -401,7 +466,7 @@ int launch_select_rows(const SelectRowsArgs& a, long long smem,
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices || smem > allowed[device].load()) {
-    err = cudaFuncSetAttribute(select_rows_kernel<kStaged>,
+    err = cudaFuncSetAttribute(select_rows_kernel<kStaged, kCached>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -422,7 +487,7 @@ int launch_select_rows(const SelectRowsArgs& a, long long smem,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, select_rows_kernel<kStaged>, a);
+  err = cudaLaunchKernelEx(&cfg, select_rows_kernel<kStaged, kCached>, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -458,11 +523,17 @@ long long select_rows_args_bytes() { return sizeof(SelectRowsArgs); }
 // One launch over the carry in ``a``; stages the device vectors in shared
 // memory when they fit in ``smem_limit`` bytes (a negative limit: the
 // most a block of the current device may opt in to), else reads them
-// from device memory.  k < 65536, R >= 1.
+// from device memory.  A non-null cache_ok takes the cached
+// instantiation, which needs hit_blk, cache_out and rb dividing R.
+// k < 65536, R >= 1.
 int select_rows(const SelectRowsArgs* a, long long smem_limit, void* stream) {
   if (a->k <= 0) return 0;
   if (a->R <= 0 || a->k > 65535 || a->n <= 0 || a->n >= INT32_MAX ||
       a->R * a->k >= INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool cached = a->cache_ok != nullptr;
+  if (cached && (a->hit_blk == nullptr || a->cache_out == nullptr ||
+                 a->rb <= 0 || a->R % a->rb != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem_limit < 0) {
     int device = 0, optin = 0;
@@ -477,8 +548,10 @@ int select_rows(const SelectRowsArgs* a, long long smem_limit, void* stream) {
   const long long staged = staged_bytes(a->n, a->L) + slot_bytes(a->S);
   const long long static_bytes = sizeof(int) * kMaxCluster;  // block_flags
   if (staged + static_bytes <= smem_limit)
-    return launch_select_rows<true>(*a, staged, s);
-  return launch_select_rows<false>(*a, slot_bytes(a->S), s);
+    return cached ? launch_select_rows<true, true>(*a, staged, s)
+                  : launch_select_rows<true, false>(*a, staged, s);
+  return cached ? launch_select_rows<false, true>(*a, slot_bytes(a->S), s)
+                : launch_select_rows<false, false>(*a, slot_bytes(a->S), s);
 }
 
 }  // extern "C"

@@ -138,15 +138,19 @@ _WARM_ENGINES = {"equilibrium_batch", "equilibrium_batch_sharded", "fleet"}
 
 def run_lifecycle(state: ClusterState, events: list, cfg, engine: str,
                   equivalence_checks: bool = True,
-                  device=None) -> LaneResult:
+                  device=None, planner_kwargs: dict | None = None
+                  ) -> LaneResult:
     """Run one ``(state, events, cfg)`` lifecycle with one engine under
     the in-lane oracles (``cfg.balancer`` is set to ``engine``'s by the
     caller).  :func:`run_lane` builds these from a generated timeline;
     a lifecycle of any size, a production cluster's included, goes
-    through the same oracles here."""
+    through the same oracles here.  ``planner_kwargs`` reach the
+    planner's constructor beside the engine's own (the batch engine's
+    ``legality_cache`` or ``pipeline``, say)."""
     from ..core.equilibrium_batch import dense_rebuild_count
 
-    inner = ScenarioEngine._make_planner(cfg, device)
+    inner = ScenarioEngine._make_planner(cfg, device, **(planner_kwargs
+                                                         or {}))
     # equivalence lanes are replayed under the lane's configured capacity
     # headroom; baselines (mgr/none) don't honor that knob, so replay at 0
     headroom = cfg.equilibrium.headroom if equivalence_checks else 0.0

@@ -44,25 +44,27 @@ def masked_select(valid: torch.Tensor, util: torch.Tensor
 def bind_select_rows(cap_lim: torch.Tensor, dyn: dict, const: dict,
                      scal: dict):
     """The batched planner step's selection bound to its carry: a
-    callable ``(src_order, n_avail) → (any, dst, cand_src)`` (see
-    :func:`select_rows`).  On a carry on the CPU it runs the plain
-    version, on one on a card it launches the kernel
+    callable ``(src_order, n_avail, **cache) → (any, dst, cand_src[,
+    cand_row])`` (see :func:`select_rows`).  On a carry on the CPU it runs
+    the plain version, on one on a card it launches the kernel
     (:class:`.select_move.SelectRows`, which checks the carry once)."""
     if _on_cpu(cap_lim, dyn["util"]):
-        return lambda src_order, n_avail: select_rows_ref(
-            src_order, n_avail, cap_lim, dyn, const, scal)
+        return lambda src_order, n_avail, **cache: select_rows_ref(
+            src_order, n_avail, cap_lim, dyn, const, scal, **cache)
     return SelectRows(cap_lim, dyn, const, scal)
 
 
 def select_rows(src_order: torch.Tensor, n_avail: torch.Tensor,
-                cap_lim: torch.Tensor, dyn: dict, const: dict, scal: dict
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                cap_lim: torch.Tensor, dyn: dict, const: dict, scal: dict,
+                **cache) -> tuple[torch.Tensor, ...]:
     """The batched planner step's selection over its carry: per row of
     the k sources ``src_order`` (the first ``n_avail`` available), ``any``
     (k · r_cap,) bool, ``dst`` (k · r_cap,) int32 and, per source,
-    ``cand_src`` (k,) bool (:func:`.ref.select_rows_ref` says what each
+    ``cand_src`` (k,) bool; ``cache`` holds the legality cache and the
+    ``cand_row`` flag (:func:`.ref.select_rows_ref` says what each
     holds)."""
-    return bind_select_rows(cap_lim, dyn, const, scal)(src_order, n_avail)
+    return bind_select_rows(cap_lim, dyn, const, scal)(src_order, n_avail,
+                                                      **cache)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

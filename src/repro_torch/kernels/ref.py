@@ -43,47 +43,56 @@ def masked_select_ref(valid: torch.Tensor, util: torch.Tensor
     return valid.any(dim=1), dst.to(torch.int32)
 
 
-def select_rows_masks(src_order: torch.Tensor, n_avail: torch.Tensor,
-                      cap_lim: torch.Tensor, dyn: dict, const: dict,
-                      scal: dict) -> dict[str, torch.Tensor]:
-    """The masks behind :func:`select_rows_ref`, in the order K1's fused
-    kernel tests them: ``live`` (k, R) — a real row whose source-count
-    criterion holds; ``pre`` (k, R, n) — live, and every criterion but
-    the acting-slot tests and the variance test; ``cand`` (k, R, n) — pre
-    with the destination neither a member of the row's PG nor in a
-    failure domain its rule step holds; ``valid`` — cand and the variance
-    test; ``avail`` (k,) — the source is not parked."""
+def candidate_masks(src: torch.Tensor, rows: torch.Tensor,
+                    cap_lim: torch.Tensor, dyn: dict, const: dict,
+                    scal: dict, devs: torch.Tensor | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """Every criterion but the variance test of moving shard row
+    ``rows[q, r]`` (-1: padding) off source ``src[q]`` onto each device of
+    ``devs`` (m,) (None: all n, in order), on the carry as it stands:
+    ``live`` (k, R) — a real row whose source-count criterion holds;
+    ``pre`` (k, R, m) — live, and every criterion but the acting-slot
+    tests; ``cand`` (k, R, m) — pre with the destination neither a member
+    of the row's PG nor in a failure domain its rule step holds; ``size``
+    (k, R) f64 — the row's bytes, 0 for padding.  The full evaluation
+    feeds :func:`select_rows_masks`; two columns of it repair the batch
+    engine's legality cache after a move."""
     # the legality core's package imports the engines, which import this
     # module: bind it at the first call
     from ..core import legality
     d, c, s = dyn, const, scal
     used, util = d["used"], d["util"]
-    k = src_order.shape[0]
-    iota = torch.arange(used.shape[0], device=used.device)
-    avail = torch.arange(k, device=used.device) < n_avail      # (k,)
-    rows_k = d["rows_on"][src_order]                           # (k, R)
-    real = rows_k >= 0
-    r = rows_k.clamp(min=0)             # -1 padding gathers row 0, masked
+    if devs is None:
+        iota = torch.arange(used.shape[0], device=used.device)
+        at = (lambda t: t)
+    else:
+        iota = devs
+        at = (lambda t: t[..., devs])
+    real = rows >= 0
+    r = rows.clamp(min=0)               # -1 padding gathers row 0, masked
     pg, lvl, slot = c["sh_pg"][r], c["sh_level"][r], c["sh_slot"][r]
     sbase, scnt = c["sh_sbase"][r], c["sh_scnt"][r]
     pool = c["sh_pool"][r]
     size = torch.where(real, c["sh_size"][r], 0.0)             # (k, R) f64
 
     # every criterion but the slots' and the variance test
-    src_c = src_order[:, None]                                 # (k, 1)
-    src_cc = src_order[:, None, None]                          # (k, 1, 1)
+    src_c = src[:, None]                                       # (k, 1)
+    src_cc = src[:, None, None]                                # (k, 1, 1)
     live = real & legality.src_count_ok(d["pool_counts"][pool, src_c],
                                         c["ideal"][pool, src_c], s["slack"])
-    u_s = util[src_order][:, None, None]
-    pre = (live[..., None] & c["dev_in"] & (iota != src_cc)
-           & legality.before_source(util, u_s, iota, src_cc)
-           & legality.class_ok(c["sh_class"][r][..., None], c["dev_class"])
-           & d["dst_ok"][pool]
-           & legality.capacity_ok(used, cap_lim, size[..., None]))
+    u_s = util[src][:, None, None]
+    crit = (d["dst_ok"][pool] if devs is None
+            else d["dst_ok"][pool[..., None], devs])
+    pre = (live[..., None] & at(c["dev_in"]) & (iota != src_cc)
+           & legality.before_source(at(util), u_s, iota, src_cc)
+           & legality.class_ok(c["sh_class"][r][..., None],
+                               at(c["dev_class"]))
+           & crit
+           & legality.capacity_ok(at(used), at(cap_lim), size[..., None]))
 
     # not a member, failure domain free: from the acting table, all S
     # slots of each row's PG at once (the reference loops over the slots;
-    # one (k, R, S, n) compare per test is the same OR).  Padded slots are
+    # one (k, R, S, m) compare per test is the same OR).  Padded slots are
     # -1: never a member, never a peer.
     acting_t = d["acting"][pg]                                 # (k, R, S)
     j = torch.arange(acting_t.shape[2], device=iota.device)
@@ -92,24 +101,63 @@ def select_rows_masks(src_order: torch.Tensor, n_avail: torch.Tensor,
     peer = torch.where(in_step, c["dev_domain"][lvl[..., None],
                                                 acting_t.clamp(min=0)],
                        -1)                     # domain ids are >= 0
-    member = (acting_t[..., None] == iota).any(dim=2)          # (k, R, n)
-    clash = (c["dev_domain"][lvl][:, :, None, :]
-             == peer[..., None]).any(dim=2)
-    cand = pre & ~(member | clash)
+    member = (acting_t[..., None] == iota).any(dim=2)          # (k, R, m)
+    dom = (c["dev_domain"][lvl] if devs is None
+           else c["dev_domain"][lvl[..., None], devs])         # (k, R, m)
+    clash = (dom[:, :, None, :] == peer[..., None]).any(dim=2)
+    return {"live": live, "pre": pre, "cand": pre & ~(member | clash),
+            "size": size}
+
+
+def select_rows_masks(src_order: torch.Tensor, n_avail: torch.Tensor,
+                      cap_lim: torch.Tensor, dyn: dict, const: dict,
+                      scal: dict, cache_ok: torch.Tensor | None = None,
+                      hit_blk: torch.Tensor | None = None,
+                      rb: int | None = None,
+                      cache_out: torch.Tensor | None = None
+                      ) -> dict[str, torch.Tensor]:
+    """The masks behind :func:`select_rows_ref`, in the order K1's fused
+    kernel tests them: ``live`` (k, R), ``pre`` and ``cand`` (k, R, n) of
+    :func:`candidate_masks` for the k sources ``src_order`` and their
+    rows; ``valid`` — cand and the variance test; ``avail`` (k,) — the
+    source is not parked.
+
+    With a cache (``cache_ok`` (k, R, n) bool, ``hit_blk`` (k, R / rb)
+    bool, ``rb`` rows a block): the candidate mask of a row in a hit
+    block is read from ``cache_ok``, and every other row's fresh one is
+    written into ``cache_out`` (default ``cache_ok``), in place; the
+    variance test runs on ``cand`` as read."""
+    from ..core import legality
+    d, c, s = dyn, const, scal
+    used, util = d["used"], d["util"]
+    k = src_order.shape[0]
+    m = candidate_masks(src_order, d["rows_on"][src_order], cap_lim, dyn,
+                        const, scal)
+    if cache_ok is not None:
+        hit = hit_blk.repeat_interleave(rb, dim=1)[..., None]  # (k, R, 1)
+        out = cache_ok if cache_out is None else cache_out
+        fresh = m["cand"]
+        m["cand"] = torch.where(hit, cache_ok, fresh)
+        out.copy_(torch.where(hit, out, fresh))
 
     # exact variance acceptance (float64, reference operand order)
     var_ok = legality.variance_improves(
         used[src_order][:, None, None], used,
-        c["cap"][src_order][:, None, None], c["cap"], u_s, util,
-        size[..., None], d["us"], d["usq"], s["n_f"], s["min_dvar"])
-    return {"live": live, "pre": pre, "cand": cand, "valid": cand & var_ok,
-            "avail": avail}
+        c["cap"][src_order][:, None, None], c["cap"],
+        util[src_order][:, None, None], util, m["size"][..., None],
+        d["us"], d["usq"], s["n_f"], s["min_dvar"])
+    m["valid"] = m["cand"] & var_ok
+    m["avail"] = torch.arange(k, device=used.device) < n_avail
+    return m
 
 
 def select_rows_ref(src_order: torch.Tensor, n_avail: torch.Tensor,
                     cap_lim: torch.Tensor, dyn: dict, const: dict,
-                    scal: dict
-                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    scal: dict, *, cache_ok: torch.Tensor | None = None,
+                    hit_blk: torch.Tensor | None = None,
+                    rb: int | None = None,
+                    cache_out: torch.Tensor | None = None,
+                    cand_row: bool = False) -> tuple[torch.Tensor, ...]:
     """The batched planner step's selection, plain version of K1's fused
     kernel (:func:`repro_torch.kernels.select_move.select_rows_fwd`).
 
@@ -119,7 +167,9 @@ def select_rows_ref(src_order: torch.Tensor, n_avail: torch.Tensor,
     first ``n_avail`` (0-dim) are not parked, and evaluates every
     criterion of moving each source's shard row ``r`` (of ``r_cap``) to
     each device on the full ``(k, r_cap, n_dev)`` tensor, with the legality
-    core's expressions in float64 (:func:`select_rows_masks`).  Returns
+    core's expressions in float64 (:func:`select_rows_masks`, which also
+    says how the optional legality cache ``cache_ok`` / ``hit_blk`` /
+    ``rb`` / ``cache_out`` is read and written).  Returns
 
     * ``any`` (k · r_cap,) bool — the row has a legal destination, and its
       source is available;
@@ -127,14 +177,19 @@ def select_rows_ref(src_order: torch.Tensor, n_avail: torch.Tensor,
       the lowest index, 0 where none (:func:`masked_select_ref`);
     * ``cand_src`` (k,) bool — some row of the source has a pair that
       passes every criterion but the variance test (the source-bound
-      certificates' test).
+      certificates' test);
+    * with ``cand_row=True``, ``cand_row`` (k, r_cap) bool — the same per
+      row (False for padding rows).
     """
-    m = select_rows_masks(src_order, n_avail, cap_lim, dyn, const, scal)
+    m = select_rows_masks(src_order, n_avail, cap_lim, dyn, const, scal,
+                          cache_ok, hit_blk, rb, cache_out)
     k, r_cap, n = m["valid"].shape
     any_row, dst = masked_select_ref(m["valid"].view(k * r_cap, n),
                                      dyn["util"])
     any_row = (any_row.view(k, r_cap) & m["avail"][:, None]).view(-1)
-    return any_row, dst, m["cand"].flatten(1).any(dim=1)
+    per_row = m["cand"].any(dim=2)
+    out = (any_row, dst, per_row.any(dim=1))
+    return (*out, per_row) if cand_row else out
 
 
 NEG_INF = -1e30

@@ -12,8 +12,10 @@ masked_select_fwd``; the kernels' source notes their bound and design.
 * :class:`SelectRows` (one call: :func:`select_rows_fwd`) — the planner
   step's path: one fused launch evaluates every legality criterion and
   the float64 variance test on the carry as it stands and reduces per
-  row, so the ``(k, r_cap, n_dev)`` mask never exists.  Plain version:
-  :func:`repro_torch.kernels.ref.select_rows_ref`.
+  row, so the ``(k, r_cap, n_dev)`` mask never exists.  Given the batch
+  engine's legality cache it launches the cached instantiation, which
+  reads the candidate masks of the cache's hit blocks and writes the
+  others'.  Plain version: :func:`repro_torch.kernels.ref.select_rows_ref`.
 * :func:`masked_select_fwd` — the reduction alone over a mask in device
   memory, the counterpart of the JAX package's public function.  Plain
   version: :func:`repro_torch.kernels.ref.masked_select_ref`.
@@ -33,6 +35,9 @@ import torch
 VARIANTS = ("select_rows", "masked_select")
 
 _launches = dict.fromkeys(VARIANTS, 0)
+#: the ``select_rows`` launches (counted there too) that read a legality
+#: cache
+_cached_launches = 0
 
 
 def launch_count() -> int:
@@ -46,9 +51,18 @@ def launch_counts() -> dict[str, int]:
     return dict(_launches)
 
 
+def cached_launch_count() -> int:
+    """The ``select_rows`` launches since the last
+    :func:`reset_launch_count` that took the cached instantiation (each is
+    in ``launch_counts()["select_rows"]`` too)."""
+    return _cached_launches
+
+
 def reset_launch_count() -> None:
+    global _cached_launches
     for name in VARIANTS:
         _launches[name] = 0
+    _cached_launches = 0
 
 
 def _kernel(dtype: torch.dtype):
@@ -121,8 +135,9 @@ _CARRY = {"rows_on": ("dyn", torch.int64), "acting": ("dyn", torch.int64),
           "slack": ("scal", torch.float64),
           "min_dvar": ("scal", torch.float64)}
 _STEP = ("src_order", "n_avail")         # the step's own, set per launch
-_OUT = ("any_out", "dst_out", "cand_src")
-_SIZES = ("k", "R", "n", "S", "L")
+_CACHE = ("cache_ok", "hit_blk", "cache_out")   # per launch, or null
+_OUT = ("any_out", "dst_out", "cand_src", "cand_row")
+_SIZES = ("k", "R", "n", "S", "L", "rb")
 _args_type = None
 
 
@@ -138,7 +153,8 @@ def _select_rows_kernel():
         lib.select_rows_fields.restype = ctypes.c_char_p
         lib.select_rows_args_bytes.restype = ctypes.c_longlong
         names = lib.select_rows_fields().decode().split()
-        if sorted(names) != sorted((*_STEP, *_CARRY, *_OUT, *_SIZES)):
+        if sorted(names) != sorted((*_STEP, *_CARRY, *_CACHE, *_OUT,
+                                    *_SIZES)):
             raise RuntimeError(f"select_rows: the library's fields {names} "
                                f"are not the wrapper's")
 
@@ -211,10 +227,34 @@ class SelectRows:
         self._args = args_type(**{key: v.data_ptr() for key, v in t.items()},
                                R=R, n=n, S=S, L=L)
 
-    def __call__(self, src_order: torch.Tensor, n_avail: torch.Tensor
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(any (k · R,) bool, dst (k · R,) int32, cand_src (k,) bool):
-        the outputs of :func:`repro_torch.kernels.ref.select_rows_ref`."""
+    def _cache(self, k: int, cache_ok, hit_blk, rb, cache_out) -> int:
+        """Check a legality cache for a launch on k sources; returns
+        ``rb``."""
+        R, n = self._R, self._args.n
+        if not isinstance(rb, int) or rb < 1 or R % rb:
+            raise ValueError(f"select_rows: the cache's row block {rb!r} "
+                             f"must be a positive int dividing R {R}")
+        for key, t, shape in (("cache_ok", cache_ok, (k, R, n)),
+                              ("hit_blk", hit_blk, (k, R // rb)),
+                              ("cache_out", cache_out, (k, R, n))):
+            if not isinstance(t, torch.Tensor):
+                raise ValueError(f"select_rows: {key} must be a tensor")
+            _on_card(key, t, torch.bool, self._dev)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"select_rows: {key} has shape "
+                                 f"{tuple(t.shape)}, expected {shape}")
+        return rb
+
+    def __call__(self, src_order: torch.Tensor, n_avail: torch.Tensor, *,
+                 cache_ok: torch.Tensor | None = None,
+                 hit_blk: torch.Tensor | None = None, rb: int | None = None,
+                 cache_out: torch.Tensor | None = None,
+                 cand_row: bool = False) -> tuple[torch.Tensor, ...]:
+        """(any (k · R,) bool, dst (k · R,) int32, cand_src (k,) bool,
+        and with ``cand_row`` cand_row (k, R) bool): the outputs of
+        :func:`repro_torch.kernels.ref.select_rows_ref` on the same
+        arguments.  A ``cache_ok`` launches the cached instantiation; a
+        malformed cache raises."""
         if any(a is not b for a, b in zip(self._carry(), self._held)):
             self._bind()
         dev = self._dev
@@ -226,13 +266,27 @@ class SelectRows:
             raise ValueError(f"select_rows: bad shapes: src_order "
                              f"{tuple(src_order.shape)}, n_avail "
                              f"{tuple(n_avail.shape)}, R {self._R}")
+        cached = cache_ok is not None
+        if cached:
+            cache_out = cache_ok if cache_out is None else cache_out
+            rb = self._cache(k, cache_ok, hit_blk, rb, cache_out)
+        elif hit_blk is not None or cache_out is not None:
+            raise ValueError("select_rows: hit_blk or cache_out without "
+                             "cache_ok")
         any_out = torch.empty(kR, dtype=torch.bool, device=dev)
         dst_out = torch.empty(kR, dtype=torch.int32, device=dev)
         cand_src = torch.empty(k, dtype=torch.bool, device=dev)
+        rows = (torch.empty((k, self._R), dtype=torch.bool, device=dev)
+                if cand_row else None)
         a = self._args         # the launch copies it: reuse is safe
         a.src_order, a.n_avail = src_order.data_ptr(), n_avail.data_ptr()
         a.any_out, a.dst_out = any_out.data_ptr(), dst_out.data_ptr()
         a.cand_src, a.k = cand_src.data_ptr(), k
+        a.cand_row = rows.data_ptr() if cand_row else None
+        a.cache_ok = cache_ok.data_ptr() if cached else None
+        a.hit_blk = hit_blk.data_ptr() if cached else None
+        a.cache_out = cache_out.data_ptr() if cached else None
+        a.rb = rb if cached else 0
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = self._fn(ctypes.byref(a), self._smem_limit, stream)
@@ -240,22 +294,27 @@ class SelectRows:
             raise RuntimeError(f"select_rows kernel launch failed: CUDA "
                                f"error {rc}")
         _launches["select_rows"] += 1
-        return any_out, dst_out, cand_src
+        if cached:
+            global _cached_launches
+            _cached_launches += 1
+        out = (any_out, dst_out, cand_src)
+        return (*out, rows) if cand_row else out
 
 
 def select_rows_fwd(src_order: torch.Tensor, n_avail: torch.Tensor,
                     cap_lim: torch.Tensor, dyn: dict, const: dict,
-                    scal: dict, smem_limit: int | None = None
-                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    scal: dict, smem_limit: int | None = None, **cache
+                    ) -> tuple[torch.Tensor, ...]:
     """One launch of the fused selection on the planner's carry, on CUDA
     tensors: the signature and outputs of
-    :func:`repro_torch.kernels.ref.select_rows_ref`.  Every tensor must
-    lie on one card, contiguous, in the carry's dtype (int64 indices,
-    bool masks, float64 values); raises on anything else and never falls
-    back to the plain version.  A planner that launches once a step binds
-    its carry once instead (:class:`SelectRows`)."""
-    return SelectRows(cap_lim, dyn, const, scal, smem_limit)(src_order,
-                                                            n_avail)
+    :func:`repro_torch.kernels.ref.select_rows_ref` (``cache``: its
+    keyword arguments).  Every tensor must lie on one card, contiguous,
+    in the carry's dtype (int64 indices, bool masks, float64 values);
+    raises on anything else and never falls back to the plain version or
+    to the other instantiation.  A planner that launches once a step
+    binds its carry once instead (:class:`SelectRows`)."""
+    return SelectRows(cap_lim, dyn, const, scal, smem_limit)(
+        src_order, n_avail, **cache)
 
 
 def compact_parked(order_k: torch.Tensor, parked: torch.Tensor

@@ -105,7 +105,7 @@ class ScenarioEngine:
         self._expansions = 0
 
     @staticmethod
-    def _make_planner(cfg: SimConfig, device=None) -> Planner:
+    def _make_planner(cfg: SimConfig, device=None, **options) -> Planner:
         """Resolve ``cfg.balancer`` through the planner registry.
 
         The planner's own config comes from the SimConfig field its
@@ -118,10 +118,11 @@ class ScenarioEngine:
         :func:`~repro_torch.core.planner.create_planner`, so ``device``
         reaches only the planners that run on one (``equilibrium_batch``
         and ``equilibrium_jax_legacy``): ``None`` is the CUDA card, and
-        they raise without one.
+        they raise without one.  ``options`` go to the planner too.
         """
         spec = get_planner_spec(cfg.balancer)    # ValueError when unknown
-        kwargs = {"chunk": max(1, cfg.moves_per_tick), "device": device}
+        kwargs = {"chunk": max(1, cfg.moves_per_tick), "device": device,
+                  **options}
         if spec.sim_config_attr is not None:
             kwargs["cfg"] = getattr(cfg, spec.sim_config_attr)
         return create_planner(cfg.balancer, **kwargs)

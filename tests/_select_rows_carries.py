@@ -12,14 +12,22 @@ rows; ``cluster_d`` has the paper's hybrid rule (1 x ssd + 2 x hdd).
 The knife's edge sets ``min_dvar`` from the plain version's own variance
 delta of one legal pair, so that the test's strict ``<`` sits exactly on
 that pair's boundary (the pair is rejected) or one ulp inside it (it is
-accepted).  Imports no JAX: the card's tests use it too.
+accepted).
+
+The legality cache's states (``cache_states``, ``engine_cache``): every
+block a miss, every block a hit on the fresh masks, a tag mismatch
+(every other source's blocks hit, the others' bytes noise), and the
+engine's own cache after planning steps with it on.  Imports no JAX: the
+card's tests and ``chip_smoke.py`` use it too.
 """
+
+import functools
 
 import torch
 
-from repro_torch.core import clustergen
+from repro_torch.core import ClusterState, clustergen
 from repro_torch.core.equilibrium_batch import BatchPlanner
-from repro_torch.kernels.ref import select_rows_ref
+from repro_torch.kernels.ref import select_rows_masks, select_rows_ref
 
 CLUSTERS = ("small_test_cluster", "cluster_a", "cluster_d")
 #: (steps run before, source bounds, parked)
@@ -34,10 +42,22 @@ def carry_id(case) -> str:
             f"{'-parked' if parked else ''}")
 
 
+@functools.lru_cache(maxsize=None)
+def _built(cluster: str) -> dict:
+    return getattr(clustergen, cluster)().to_plain()
+
+
+def cluster_state(cluster: str) -> ClusterState:
+    """A new state of the paper cluster ``cluster``, equal to a fresh
+    build (the build runs once a process; each call rebuilds the state
+    from its plain form, bytes as they are)."""
+    return ClusterState.from_plain(_built(cluster))
+
+
 def carry(cluster: str, steps: int, bounds: bool, parked: bool) -> tuple:
     """The arguments of ``select_rows`` (src_order, n_avail, cap_lim, dyn,
     const, scal), on the CPU."""
-    planner = BatchPlanner(getattr(clustergen, cluster)(),
+    planner = BatchPlanner(cluster_state(cluster),
                            chunk=max(steps, 1), source_bounds=bounds,
                            device="cpu")
     planner.sync()
@@ -95,3 +115,59 @@ def knife_edge(args: tuple, inside: bool) -> tuple[tuple, tuple]:
                                                   dtype=edge.dtype))
     scal = {**args[5], "min_dvar": edge.to(args[5]["min_dvar"].device)}
     return (*args[:5], scal), (s, r, d)
+
+
+#: the legality cache's row block in the cache states
+CACHE_RB = 8
+
+
+def cache_states(args: tuple) -> list[tuple[str, dict, torch.Tensor]]:
+    """(name, the cache's arguments, the fresh candidate masks) of each
+    cache state for one carry: ``miss`` (nothing clean, the bytes noise),
+    ``hit`` (every block clean on the fresh masks), ``tag-mismatch``
+    (every other source's blocks clean, the others' bytes noise).  The
+    cached call must give the uncached call's outputs and write the fresh
+    masks into its miss rows."""
+    fresh = select_rows_masks(*args)["cand"]
+    k, R, n = fresh.shape
+    dev = fresh.device
+    rb = CACHE_RB
+    gen = torch.Generator().manual_seed(0)
+    noise = (torch.rand((k, R, n), generator=gen) < 0.3).to(dev)
+    odd = (torch.arange(k, device=dev) % 2 == 1)[:, None].expand(
+        k, R // rb).contiguous()
+    blocks = (k, R // rb, rb, n)
+    mixed = torch.where(odd[:, :, None, None], fresh.view(blocks),
+                        noise.view(blocks)).view(k, R, n)
+    return [("miss", dict(cache_ok=noise, hit_blk=torch.zeros_like(odd),
+                          rb=rb), fresh),
+            ("hit", dict(cache_ok=fresh.clone(),
+                         hit_blk=torch.ones_like(odd), rb=rb), fresh),
+            ("tag-mismatch", dict(cache_ok=mixed, hit_blk=odd, rb=rb),
+             fresh)]
+
+
+def engine_cache(cluster: str, steps: int, legal_hit: bool = False,
+                 device="cpu") -> tuple[tuple, dict]:
+    """The engine's carry with the legality cache on after its first step
+    (at most ``steps``, chunk 1) after which the next step reads some
+    blocks from the cache and evaluates others (with ``legal_hit``: reads
+    a legal pair from it): that step's ``select_rows`` arguments and its
+    cache, as the step reads them."""
+    planner = BatchPlanner(cluster_state(cluster), chunk=1,
+                           legality_cache=True, device=device)
+    planner.sync()
+    step = planner._step
+    d = step.dyn
+    for _ in range(steps):
+        step.run(1)
+        _, src_order, n_avail = step.sources()
+        args = (src_order, n_avail, step.cap_lim, d, step.const, step.scal)
+        hit_blk = (d["c_dev"] == src_order)[:, None] & d["c_clean"]
+        hit_rows = hit_blk.repeat_interleave(step.rb, 1)
+        legal = select_rows_ref(*args)[0].view(step.k, -1) & hit_rows
+        if bool(hit_blk.any()) and not bool(hit_blk.all()) \
+                and (bool(legal.any()) or not legal_hit):
+            return args, dict(cache_ok=d["c_ok"].clone(), hit_blk=hit_blk,
+                              rb=step.rb)
+    raise AssertionError(f"{cluster}: no such step in {steps}")

@@ -21,7 +21,12 @@ The SIMT K3 at state widths 128 (in float32) and 256 (the widest the
 block fits) is held to the float32 plain version at 1e-4 in float32 and,
 in bf16, per row at 1e-2.  ``select_rows`` is held bitwise to ``select_rows_ref`` on
 the planner carries of ``tests/_select_rows_carries.py``, the knife's
-edge of the variance test on each side among them.  The batch engine's
+edge of the variance test on each side among them, and so is its cached
+instantiation (the batch engine's legality cache) in each cache state,
+the engine's own cache included, with ``cand_row`` and the cache it
+writes; a malformed cache raises.  The batch engine with the cache on,
+pipelined or not, gives the CPU run's moves and counters under a tracer.
+The batch engine's
 warm continuation after each delta type equals a cold plan on the card,
 with ``select_rows`` launched once a step.  The dense legacy lane on the
 card equals the faithful planner, with the standalone ``masked_select``
@@ -31,8 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from _select_rows_carries import (CARRIES, carry, carry_id, knife_edge,
-                                  to_device)
+from _select_rows_carries import (CARRIES, cache_states, carry, carry_id,
+                                  engine_cache, knife_edge, to_device)
 from repro_torch.kernels import flash_attention as k2
 from repro_torch.kernels import select_move
 from repro_torch.kernels import ssd_scan as k3
@@ -440,6 +445,132 @@ def test_k1_select_rows_raises(card):
             select_move.select_rows_fwd(src_order, n_avail, cap_lim, d, c,
                                         scal)
     assert select_move.launch_count() == before
+
+
+def _cached_matches_plain(args, cache, card, smem_limit=None):
+    """K1's cached instantiation on the card equals the plain version with
+    the same cache, bitwise: the outputs, ``cand_row`` and the cache each
+    writes; one launch, counted as cached."""
+    args = to_device(args, card)
+    cache = {k: v.to(card) if isinstance(v, torch.Tensor) else v
+             for k, v in cache.items()}
+    out_k, out_p = cache["cache_ok"].clone(), cache["cache_ok"].clone()
+    before = select_move.launch_counts()["select_rows"]
+    cached = select_move.cached_launch_count()
+    got = select_move.select_rows_fwd(*args, smem_limit=smem_limit, **cache,
+                                      cache_out=out_k, cand_row=True)
+    assert select_move.launch_counts()["select_rows"] == before + 1
+    assert select_move.cached_launch_count() == cached + 1
+    want = select_rows_ref(*args, **cache, cache_out=out_p, cand_row=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("any", "dst", "cand_src", "cand_row"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert torch.equal(out_k, out_p), "the written cache"
+    return got
+
+
+@pytest.mark.parametrize("case", CARRIES, ids=carry_id)
+def test_k1_cached_select_rows_matches_plain(card, case):
+    """Each cache state (every block a miss, every block a hit, a tag
+    mismatch) on each test carry, staged and, for every fourth carry,
+    from device memory."""
+    args = carry(*case)
+    limits = (None, 0) if CARRIES.index(case) % 4 == 0 else (None,)
+    for _name, cache, _fresh in cache_states(args):
+        for limit in limits:
+            _cached_matches_plain(args, cache, card, limit)
+
+
+@pytest.mark.parametrize("cluster", ["small_test_cluster", "cluster_a"])
+def test_k1_cached_select_rows_on_the_engines_cache(card, cluster):
+    """The engine's own cache after planning steps with it: the kernel
+    equals the plain version, and the uncached selection."""
+    args, cache = engine_cache(cluster, 40)
+    got = _cached_matches_plain(args, cache, card)
+    plain = select_rows_ref(*to_device(args, card))
+    for g, w in zip(got[:3], plain):
+        assert torch.equal(g, w)
+
+
+def test_k1_cached_select_rows_reads_the_cache(card):
+    """A legal pair cleared from a clean block of the engine's cache
+    leaves the kernel's selection, as it leaves the plain version's."""
+    args, cache = engine_cache("cluster_a", 60, legal_hit=True)
+    plain = select_rows_ref(*args)
+    k, R = cache["hit_blk"].shape[0], args[3]["rows_on"].shape[1]
+    hit_rows = cache["hit_blk"].repeat_interleave(cache["rb"], 1)
+    q, r = (int(i) for i in (plain[0].view(k, R) & hit_rows).nonzero()[0])
+    cache["cache_ok"][q, r, int(plain[1].view(k, R)[q, r])] = False
+    got = _cached_matches_plain(args, cache, card)
+    assert not torch.equal(got[0].cpu(), plain[0])
+
+
+def test_k1_cached_select_rows_raises(card):
+    """A malformed cache raises and launches nothing: never the uncached
+    kernel or the plain version in its place."""
+    args = to_device(carry("small_test_cluster", 0, True, False), card)
+    k, R = args[0].shape[0], args[3]["rows_on"].shape[1]
+    n = args[3]["used"].shape[0]
+    ok = torch.zeros((k, R, n), dtype=torch.bool, device=card)
+    hit = torch.zeros((k, R // 8), dtype=torch.bool, device=card)
+    bad = {"uint8 cache": dict(cache_ok=ok.to(torch.uint8), hit_blk=hit,
+                               rb=8),
+           "short cache": dict(cache_ok=ok[:, :R - 8], hit_blk=hit, rb=8),
+           "hit_blk on the CPU": dict(cache_ok=ok, hit_blk=hit.cpu(), rb=8),
+           "strided cache_out": dict(cache_ok=ok, hit_blk=hit, rb=8,
+                                     cache_out=ok.transpose(0, 1)),
+           "row block not dividing R": dict(cache_ok=ok, hit_blk=hit,
+                                            rb=R + 1),
+           "hit_blk without a cache": dict(hit_blk=hit)}
+    before = select_move.launch_count()
+    for name, cache in bad.items():
+        with pytest.raises(ValueError):
+            select_move.select_rows_fwd(*args, **cache)
+    assert select_move.launch_count() == before
+
+
+def _counted(planner, state):
+    """One traced plan to convergence: its moves, certificate counters
+    and the opt-ins' registry deltas."""
+    from repro_torch import obs
+    reg = obs.registry()
+    with obs.tracing():
+        snap = reg.snapshot()
+        res = planner.plan(state, record_trajectory=True)
+        d = reg.deltas_since(snap)
+    keys = ("tiles_walked", "cand_tiles", "cache_hits", "cache_misses",
+            "cache_repairs", "chunks_overlapped", "repads", "stash_moves")
+    return {"moves": [(m.pg, m.slot, m.src_osd, m.dst_osd)
+                      for m in res.moves],
+            "tried": [r.sources_tried for r in res.records],
+            "bound_hits": res.stats["bound_hits"],
+            "pruned": res.stats["pruned_sources"],
+            **{key: int(d.get(f"batch.{key}", 0)) for key in keys},
+            "chunks": int(d.get("batch.chunks", 0))}
+
+
+@pytest.mark.parametrize("pipeline", [True, False], ids=["pipe", "nopipe"])
+@pytest.mark.parametrize("cluster", ["small_test_cluster", "cluster_a"])
+def test_batch_optins_on_card_match_cpu(card, cluster, pipeline):
+    """``equilibrium_batch`` with the legality cache on the card, pipelined
+    or not, under a tracer: the CPU run's moves, ``sources_tried``,
+    certificate counters and opt-in counters; ``select_rows`` once a
+    step, every launch the cached instantiation."""
+    from repro_torch.core import clustergen
+    from repro_torch.core.planner import create_planner
+    runs = {}
+    for device in ("cpu", "cuda"):
+        select_move.reset_launch_count()
+        planner = create_planner("equilibrium_batch", chunk=8,
+                                 legality_cache=True, pipeline=pipeline,
+                                 device=device)
+        runs[device] = _counted(planner, getattr(clustergen, cluster)())
+        launches = select_move.launch_counts()
+    assert runs["cuda"] == runs["cpu"]
+    assert runs["cuda"]["cache_hits"] > 0
+    assert launches == {"select_rows": 8 * runs["cuda"]["chunks"],
+                        "masked_select": 0}
+    assert select_move.cached_launch_count() == launches["select_rows"]
 
 
 # ---------------------------------------------------------------------------

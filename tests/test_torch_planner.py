@@ -221,10 +221,18 @@ def test_degenerate_clusters_plan_nothing():
     assert res.moves == [] and validate_stats(res.stats) == []
 
 
-def test_legality_cache_is_refused():
-    with pytest.raises(ValueError, match="legality_cache"):
-        create_planner("equilibrium_batch", device="cpu",
-                       legality_cache=True)
+def test_legality_cache_is_accepted_and_source_block_refused():
+    """The front door takes the engine's opt-ins and reports them; a
+    source block other than 1 raises."""
+    res = create_planner("equilibrium_batch", device="cpu",
+                         legality_cache=True, pipeline=False,
+                         row_block=4).plan(port_gen.small_test_cluster(),
+                                           budget=4)
+    assert res.stats["legality_cache"] is True
+    assert res.stats["pipeline"] is False
+    assert len(res.moves) == 4 and validate_stats(res.stats) == []
+    with pytest.raises(ValueError, match="source_block"):
+        create_planner("equilibrium_batch", device="cpu", source_block=2)
 
 
 def test_mgr_matches_reference():
@@ -253,7 +261,7 @@ def test_registry_and_stats_schema():
         assert validate_stats(res.stats) == [], name
     res = create_planner("equilibrium_batch", device="cpu").plan(
         port_gen.small_test_cluster(), budget=4)
-    assert res.stats["engine"] == "batch" and res.stats["pipeline"] is False
+    assert res.stats["engine"] == "batch" and res.stats["pipeline"] is True
     assert res.stats["source_bounds"] is True
     # absorbed_deltas is the planner's lifetime count, not a per-plan delta
     state = port_gen.small_test_cluster()

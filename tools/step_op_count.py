@@ -13,8 +13,11 @@ it is on the card: its plain version, which the CPU runs, is left out of
 the count (a tree without it, as before the fusion, is counted as it
 is).  Prints one JSON line: operations a step in ``select`` (besides
 that launch), in ``apply``, and in the whole step with the launch.
+``--telemetry`` counts the step as it runs while a tracer is installed
+(the device telemetry on), ``--cache`` with the legality cache on.
 
     PYTHONPATH=src python tools/step_op_count.py [--cluster cluster_a]
+        [--telemetry] [--cache]
 
 To count another checkout's engine, point ``PYTHONPATH`` at its
 ``src``.
@@ -53,15 +56,17 @@ class OpCount(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def count(cluster: str, steps: int) -> dict:
-    planner = eb.BatchPlanner(getattr(clustergen, cluster)(), device="cpu")
+def count(cluster: str, steps: int, telemetry: bool = False,
+          cache: bool = False) -> dict:
+    planner = eb.BatchPlanner(getattr(clustergen, cluster)(), device="cpu",
+                              legality_cache=cache)
     planner.sync()
     step = planner._step
     fused = getattr(step, "select_rows", None)
 
-    def one_launch(*args):
+    def one_launch(*args, **kwargs):
         with _disable_current_modes():
-            return fused(*args)
+            return fused(*args, **kwargs)
 
     select, apply, whole = OpCount(), OpCount(), OpCount()
     select_fn, apply_fn = step.select, step.apply
@@ -78,9 +83,10 @@ def count(cluster: str, steps: int) -> dict:
         step.select_rows = one_launch
     step.select, step.apply = counted_select, counted_apply
     with whole:                 # the nested modes' operations reach it too
-        step.run(steps)
+        step.run(steps, telemetry)
     launches = int(fused is not None)
-    return {"cluster": cluster, "steps": steps,
+    return {"cluster": cluster, "steps": steps, "telemetry": telemetry,
+            "legality_cache": cache,
             "select_ops_per_step": select.n / steps,
             "select_launches_per_step": launches,
             "apply_ops_per_step": apply.n / steps,
@@ -91,9 +97,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cluster", default="cluster_a")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--telemetry", action="store_true")
+    ap.add_argument("--cache", action="store_true")
     args = ap.parse_args()
     torch.set_num_threads(1)
-    print(json.dumps(count(args.cluster, args.steps)))
+    print(json.dumps(count(args.cluster, args.steps, args.telemetry,
+                           args.cache)))
 
 
 if __name__ == "__main__":
