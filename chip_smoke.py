@@ -177,13 +177,27 @@ phases, one JSON line each, and exits non-zero if any fails:
     first chunk with the cache; and phase ``fuzz``'s sweep through the
     batch lane with the cache under a tracer, every oracle a gate,
     against that phase's faithful and dense lanes;
-12. the kernel table line (K1 twice: ``select_rows``'s uncached and,
+12. ``source_block`` (after ``batch_optins``): the walk's source block
+    above 1, on exact copies of phase 3's cluster B to convergence at
+    source block 3 (nine blocks, the last padded to 27 positions) and 25
+    (one block), each with the legality cache on and off under a tracer:
+    839 moves, ``planner.tail.B1x.batch``'s histogram and certificate
+    counters, the tiles walked, candidate tiles, cache hits, misses and
+    repairs, pipelined chunks, re-pads and stash moves the reference
+    engine recorded at that block in
+    ``tests/fixtures/batch_counters_cluster_b.json``, one host sync a
+    chunk, ``select_rows`` once a step (every launch cached with the
+    cache) and ``masked_select`` never; one chunk at each block with the
+    cache and the telemetry under ``set_sync_debug_mode("error")``; plan
+    seconds of each run and of the default (source block 1, no cache),
+    medians of three untraced turns;
+13. the kernel table line (K1 twice: ``select_rows``'s uncached and,
     as ``select_rows_cached``, its cached instantiation's launches and
     times; the uncached one's launches by path (the cold cluster-B plan, the warm
     lifecycle, the legacy lane's standalone reduction, the simulator's
     cluster-B lifecycle, the six scenarios, the fuzz sweep and corpus by
-    kernel, and the cluster-B lifecycle under the fuzzer's oracles), and
-    the standalone
+    kernel, the cluster-B lifecycle under the fuzzer's oracles and phase
+    ``source_block``'s runs), and the standalone
     reduction's launches and times at the legacy lane's shape beside
     them, with its times at the batch step's shape; K3 once: the
     tensor-core variant's launches and times at the zamba2 prefill, and
@@ -1030,20 +1044,29 @@ def phase_full(card: str, scale: int = 1, built: tuple | None = None
 # phase 4
 
 
-def phase_no_sync() -> dict:
-    from repro_torch.core.clustergen import cluster_a
+def chunk_without_sync(state, telemetry: bool = False, **options
+                       ) -> tuple[int, int]:
+    """One chunk of ``BatchPlanner(state, **options)`` on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that a host sync
+    inside it raises: (the chunk's length, the moves it emitted)."""
     from repro_torch.core.equilibrium_batch import BatchPlanner
-    planner = BatchPlanner(cluster_a(), device="cuda")
+    planner = BatchPlanner(state, device="cuda", **options)
     planner.sync()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = planner._step.run(planner.chunk)
+        out = planner._step.run(planner.chunk, telemetry=telemetry)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    moves = int((out[:5 * planner.chunk].view(-1, 5)[:, 0] >= 0).sum())
+    return (planner.chunk,
+            int((out[:5 * planner.chunk].view(-1, 5)[:, 0] >= 0).sum()))
+
+
+def phase_no_sync() -> dict:
+    from repro_torch.core.clustergen import cluster_a
+    chunk, moves = chunk_without_sync(cluster_a())
     check(moves > 0, "cluster A chunk emitted no move")
-    res = {"chunk": planner.chunk, "moves": moves, "syncs_in_chunk": 0}
+    res = {"chunk": chunk, "moves": moves, "syncs_in_chunk": 0}
     emit("no_sync", **res)
     return res
 
@@ -2064,6 +2087,62 @@ def counted(state, traced: bool = True, **options) -> dict:
             "host_syncs": st["host_syncs"], "seconds": secs}
 
 
+def check_cluster_b(what: str, got: dict, want: dict, bench: dict,
+                    steps: int, cache: bool) -> dict:
+    """A traced plan of cluster B to convergence (:func:`counted`, K1's
+    counts reset just before it) of ``steps`` steps against
+    ``planner.tail.B1x``'s row ``bench`` and the reference engine's run
+    ``want`` in ``tests/fixtures/batch_counters_cluster_b.json``: the
+    moves, histogram and certificate counters, every opt-in counter, one
+    host sync a chunk (and a re-pad), ``select_rows`` once a step (all
+    cached where ``cache``) and ``masked_select`` never.  Returns the
+    run's record."""
+    from repro_torch.kernels import select_move
+    launches = select_move.launch_counts()
+    cached = select_move.cached_launch_count()
+    want_hist = {int(k): v for k, v in want["sources_tried_hist"].items()}
+    check(len(got["moves"]) == bench["converged"] == want["moves"],
+          f"cluster B {what}: {len(got['moves'])} moves")
+    check(got["tried_hist"] == bench["tried_hist"] == want_hist
+          and got["bound_hits"] == bench["bound_hits"] == want["bound_hits"]
+          and got["pruned_sources"] == bench["pruned_sources"]
+          == want["pruned_sources"],
+          f"cluster B {what}: histogram or certificate counters "
+          f"{got['bound_hits']} / {got['pruned_sources']}")
+    differ = {key: (got[key], want[f"batch.{key}"]) for key in OPTIN_COUNTERS
+              if got[key] != want[f"batch.{key}"]}
+    check(not differ, f"cluster B {what}: counters differ from the "
+                      f"reference engine's: {differ}")
+    check(got["host_syncs"] == got["chunks"] + got["repads"],
+          f"cluster B {what}: {got['host_syncs']} host syncs over "
+          f"{got['chunks']} chunks")
+    check(launches == {"select_rows": steps, "masked_select": 0}
+          and cached == (steps if cache else 0),
+          f"cluster B {what}: K1 launched {launches} ({cached} cached) "
+          f"over {steps} steps")
+    return {"moves": len(got["moves"]), "chunks": got["chunks"],
+            "host_syncs": got["host_syncs"], "k1_launches": steps,
+            "k1_cached_launches": cached,
+            "counters": {key: got[key] for key in OPTIN_COUNTERS},
+            "bound_hits": got["bound_hits"],
+            "pruned_sources": got["pruned_sources"],
+            "traced_seconds": got["seconds"]}
+
+
+def plan_turns(base, configs: dict, turns: int, moves: int) -> dict:
+    """Untraced plans of cluster B to convergence on the card, one of
+    each of ``configs`` (name: planner options) a turn, each of
+    ``moves`` moves: their seconds by name."""
+    secs = {name: [] for name in configs}
+    for _ in range(turns):
+        for name, kw in configs.items():
+            rec = counted(exact_copy(base), traced=False, device="cuda", **kw)
+            check(len(rec["moves"]) == moves,
+                  f"cluster B {name}: {len(rec['moves'])} moves")
+            secs[name].append(rec["seconds"])
+    return secs
+
+
 def cached_case(args, cache, smem_limit=None) -> bool:
     """K1's cached instantiation against its plain version on the card
     with the same cache, bitwise: any, dst, cand_src, cand_row and the
@@ -2263,8 +2342,9 @@ def phase_batch_optins(card: str, base, k1: dict) -> dict:
     cluster B to convergence with the cache on an exact copy of phase 3's
     cluster under a tracer (``planner.tail.B1x.batch-cache``'s moves,
     histogram and certificate counters, the reference engine's counters
-    of ``tests/fixtures/batch_counters_cluster_b.json``, ``select_rows``
-    once a step, every launch cached), plan seconds with the cache and the
+    of ``tests/fixtures/batch_counters_cluster_b.json``, one host sync a
+    chunk, ``select_rows`` once a step, every launch cached:
+    :func:`check_cluster_b`), plan seconds with the cache and the
     pipeline on and off in turns, a profiled first chunk with the cache,
     and the fuzz sweep with the cache (:func:`optin_fuzz`)."""
     from repro_torch.kernels import select_move
@@ -2279,55 +2359,159 @@ def phase_batch_optins(card: str, base, k1: dict) -> dict:
     select_move.reset_launch_count()
     got = counted(exact_copy(base), legality_cache=True, device="cuda",
                   **cfg)
-    launches = select_move.launch_counts()
     steps = got["chunks"] * cfg["chunk"]
-    check(len(got["moves"]) == bench["converged"] == want["moves"],
-          f"cluster B with the cache: {len(got['moves'])} moves")
-    check(got["tried_hist"] == bench["tried_hist"]
-          and got["bound_hits"] == bench["bound_hits"] == want["bound_hits"]
-          and got["pruned_sources"] == bench["pruned_sources"]
-          == want["pruned_sources"],
-          f"cluster B with the cache: histogram or certificate counters "
-          f"{got['bound_hits']} / {got['pruned_sources']}")
-    differ = {key: (got[key], want[f"batch.{key}"]) for key in OPTIN_COUNTERS
-              if got[key] != want[f"batch.{key}"]}
-    check(not differ, f"cluster B with the cache: counters differ from the "
-                      f"reference engine's: {differ}")
-    check(launches == {"select_rows": steps, "masked_select": 0}
-          and select_move.cached_launch_count() == steps,
-          f"cluster B with the cache: K1 launched {launches} "
-          f"({select_move.cached_launch_count()} cached) over {steps} steps")
+    run = check_cluster_b("with the cache", got, want, bench, steps, True)
 
     # plan seconds in turns, untraced: the defaults (no cache, pipelined),
     # the cache on, the pipeline off
     configs = {f"cache={c},pipeline={p}": dict(legality_cache=c, pipeline=p)
                for c, p in ((False, True), (True, True), (False, False))}
-    secs = {name: [] for name in configs}
-    for _ in range(OPTIN_TURNS):
-        for name, kw in configs.items():
-            rec = counted(exact_copy(base), traced=False, device="cuda", **kw)
-            check(len(rec["moves"]) == want["moves"],
-                  f"cluster B {name}: {len(rec['moves'])} moves")
-            secs[name].append(rec["seconds"])
+    secs = plan_turns(base, configs, OPTIN_TURNS, want["moves"])
     prof = profile_chunk(exact_copy(base), card, legality_cache=True)
     fz = optin_fuzz()
     out = {"card": card, "k1_cached": {k: v for k, v in cached.items()
                                        if k != "turns"},
-           "matrix": matrix,
-           "cluster_b": {
-               "moves": len(got["moves"]), "chunks": got["chunks"],
-               "host_syncs": got["host_syncs"],
-               "k1_launches": launches["select_rows"],
-               "k1_cached_launches": steps,
-               "counters": {key: got[key] for key in OPTIN_COUNTERS},
-               "bound_hits": got["bound_hits"],
-               "pruned_sources": got["pruned_sources"],
-               "traced_seconds": got["seconds"]},
+           "matrix": matrix, "cluster_b": run,
            "plan_s_median": {name: float(np.median(v))
                              for name, v in secs.items()},
            "plan_s_turns": secs, "profile_with_cache": prof, "fuzz": fz}
     emit("batch_optins", **out)
     out["k1_cached_launches"] = steps
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase source_block: the walk's source block above 1
+
+#: the source blocks phase ``source_block`` plans cluster B at: 3 (25
+#: sources in 9 blocks, the last padded to 27) and 25 (one block)
+SOURCE_BLOCKS = (3, 25)
+#: untraced plan-time turns per configuration of phase ``source_block``
+SOURCE_BLOCK_TURNS = 3
+
+
+def k1_at_source_block(base, kb: int) -> dict:
+    """K1 on the input the main path gives it at source block ``kb``: the
+    ``k_pad`` positions, device 0 in the padding, and with the cache each
+    tile's hit spread over its kb slots (``_Chunk.hits``).  Cluster B with
+    the cache steps until a step has tiles that hit and tiles that miss:
+    while the fullest source wins, its own block is walked and its move
+    dirties it, so the first hits come where the walk reaches further, at
+    the latest once the plan has converged (then nothing moves and the
+    tiles walked stay clean).  At kb 25 the one block never hits in the
+    reference's run, so its first step is taken.  That step's arguments
+    go through the
+    uncached kernel and the cached one, staged and from device memory,
+    with the engine's hit mask and with a checkerboard of hit tiles, each
+    bitwise against the plain version on the same inputs: any, dst,
+    cand_src, cand_row and the cache written.  These launches are counted
+    apart from the main path's."""
+    from repro_torch.core.equilibrium_batch import BatchPlanner
+    from repro_torch.kernels import select_move
+    from repro_torch.kernels.ref import select_rows_ref
+    planner = BatchPlanner(exact_copy(base), device="cuda", source_block=kb,
+                           legality_cache=True)
+    planner.sync()
+    step = planner._step
+    # cluster B converges in 839 steps
+    for steps in range(1, (16 * planner.chunk if step.n_sb > 1 else 1) + 1):
+        step.run(1)
+        _, src_order, n_avail = step.sources()
+        _, hit_pos, hit_tile = step.hits(src_order)
+        mixed = bool(hit_tile.any()) and not bool(hit_tile.all())
+        if mixed:
+            break
+    check(mixed or step.n_sb == 1,
+          f"source_block {kb}: no step in {steps} has tiles that hit and "
+          f"tiles that miss")
+    pad = src_order[step.k:]
+    check(src_order.shape[0] == step.k_pad == step.n_sb * step.kb
+          and bool((pad == 0).all()),
+          f"source_block {kb}: {src_order.shape[0]} positions, padding "
+          f"{pad.tolist()}")
+    args = (src_order, n_avail, step.cap_lim, step.dyn, step.const,
+            step.scal)
+    select_move.reset_launch_count()
+    got = select_move.select_rows_fwd(*args, cand_row=True)
+    want = select_rows_ref(*args, cand_row=True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"select_rows at source_block {kb} differs from its plain version")
+    nb = hit_tile.shape[1]
+    blk = torch.arange(nb, device=hit_tile.device)
+    checker = ((step.sb_iota[:, None] + blk[None, :]) % 2 == 0
+               ).repeat_interleave(step.kb, dim=0)
+    cases = 0
+    for name, hit in (("engine", hit_pos), ("checkerboard", checker)):
+        for limit in (None, 0):
+            cases += 1
+            cache = dict(cache_ok=step.dyn["c_ok"].clone(),
+                         hit_blk=hit.contiguous(), rb=step.rb)
+            check(cached_case(args, cache, limit),
+                  f"cached select_rows at source_block {kb} differs from "
+                  f"its plain version ({name} hits, smem_limit {limit})")
+    launches = select_move.launch_counts()
+    check(launches == {"select_rows": cases + 1, "masked_select": 0}
+          and select_move.cached_launch_count() == cases,
+          f"source_block {kb}: K1 checks launched {launches}")
+    return {"k": step.k, "k_pad": step.k_pad, "steps_before": steps,
+            "engine_hit_tiles": int(hit_tile.sum()),
+            "tiles": hit_tile.numel(), "uncached_cases": 1,
+            "cached_cases": cases, "max_abs_err": 0,
+            "comparison": "bitwise: any, dst, cand_src, cand_row and the "
+                          "written cache"}
+
+
+def phase_source_block(card: str, base) -> dict:
+    """Cluster B at source block 3 and 25.  K1 first, on the padded and
+    tile-spread input those blocks give it (:func:`k1_at_source_block`).
+    Then cluster B to convergence with the legality cache on and off,
+    each on an exact copy of phase 3's cluster under a tracer, held by
+    :func:`check_cluster_b` to ``planner.tail.B1x.batch`` and to the
+    reference engine's run at that source block in
+    ``tests/fixtures/batch_counters_cluster_b.json``; one chunk at each
+    block with the cache and the telemetry on (the step's most
+    operations) without a host sync; plan seconds of each run and of the
+    default (source_block 1, no cache) in untraced turns."""
+    from repro_torch.kernels import select_move
+    ref = json.loads(REF_COUNTERS.read_text())
+    bench = bench_row(BENCH_ROWS[1])
+    cfg = {k: v for k, v in ref["config"].items() if k != "source_block"}
+    k1_checks = {str(kb): k1_at_source_block(base, kb)
+                 for kb in SOURCE_BLOCKS}
+    runs = {}
+    launches = {"select_rows": 0, "select_rows_cached": 0}
+    for kb in SOURCE_BLOCKS:
+        for cache in (True, False):
+            key = f"source_block={kb},legality_cache={cache}"
+            select_move.reset_launch_count()
+            got = counted(exact_copy(base), legality_cache=cache,
+                          source_block=kb, device="cuda", **cfg)
+            steps = got["chunks"] * cfg["chunk"]
+            runs[key] = check_cluster_b(key, got, ref["runs"][key], bench,
+                                        steps, cache)
+            launches["select_rows_cached" if cache else "select_rows"] += \
+                steps
+    no_sync = {}
+    for kb in SOURCE_BLOCKS:
+        _, no_sync[str(kb)] = chunk_without_sync(
+            exact_copy(base), telemetry=True, source_block=kb,
+            legality_cache=True)
+        check(no_sync[str(kb)] > 0, f"cluster B at source_block {kb}: a "
+                                    f"chunk emitted no move")
+
+    # plan seconds in turns, untraced: the default, then each run
+    configs = {"source_block=1,legality_cache=False": {}}
+    configs.update({f"source_block={kb},legality_cache={cache}":
+                    dict(source_block=kb, legality_cache=cache)
+                    for kb in SOURCE_BLOCKS for cache in (True, False)})
+    secs = plan_turns(base, configs, SOURCE_BLOCK_TURNS, bench["converged"])
+    out = {"card": card, "k1_checks": k1_checks, "runs": runs,
+           "no_sync_chunk_moves": no_sync,
+           "plan_s_median": {name: float(np.median(v))
+                             for name, v in secs.items()},
+           "plan_s_turns": secs, "k1_launches": launches}
+    emit("source_block", **out)
     return out
 
 
@@ -3117,6 +3301,7 @@ def main() -> int:
                           {"tensor_core": 64, "simt": 0}, "mamba2_prefill")
     # last, so that every earlier phase runs as it did before the opt-ins
     optins = phase_batch_optins(card, built_b[0], k1)
+    blocks = phase_source_block(card, built_b[0])
     # the entry's launches and times are the tensor-core variant's at the
     # zamba2 prefill (N 64); its N 128 instantiation's at mamba2's shape
     # and the SIMT variant's there (float32, off both prefills) stand
@@ -3164,7 +3349,9 @@ def main() -> int:
                               for k in ("select_rows", "masked_select")},
                           "fuzz corpus": fz["k1_launches"]["corpus"],
                           "cluster B lifecycle under the fuzzer's oracles":
-                              fz["cluster_b"]["k1_launches"]},
+                              fz["cluster_b"]["k1_launches"],
+                          "cluster B at source_block 3 and 25":
+                              blocks["k1_launches"]["select_rows"]},
         standalone_masked_select={
             "launches": legacy_b,
             "max_abs_err": dense["cluster_b"]["equilibrium_jax_legacy"][
@@ -3186,7 +3373,9 @@ def main() -> int:
         launches_by_path={
             "cluster B plan with the cache": optins["k1_cached_launches"],
             "fuzz sweep with the cache":
-                optins["fuzz"]["k1_launches"]},
+                optins["fuzz"]["k1_launches"],
+            "cluster B at source_block 3 and 25 with the cache":
+                blocks["k1_launches"]["select_rows_cached"]},
         hit={"ms": optins["k1_cached"]["hit_ms"],
              "device_ms": optins["k1_cached"]["hit_device_ms"]},
         uncached_at_same_step={

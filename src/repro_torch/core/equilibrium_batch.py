@@ -13,30 +13,46 @@ of up to ``chunk`` moves:
   fullest-first device order, the two utilization moments, and the
   source-bound certificates (``pruned``).
 * **One step evaluates the whole candidate tensor.**  The reference step
-  walks (source, row-block) tiles in a ``lax.while_loop`` until the
-  faithful winner is decided; torch has no data-dependent loop without a
-  host sync.  This step evaluates every criterion on the full
-  ``(k, r_cap, n_dev)`` candidate space of the compacted top-k sources at
-  once — the reference's ``source_block=k``, ``row_block ≥ r_cap`` tile,
-  which its own tests pin as move-for-move identical — and reduces it per
-  row, all in one launch of kernel K1
-  (:func:`repro_torch.kernels.ops.bind_select_rows`), which never writes the
-  mask to device memory.
-  At the reference default ``source_block=1`` the walk's outcome is a
-  closed form, derived here with masked reductions and no loop:
+  walks (source block, row block) tiles of ``source_block`` (kb) sources
+  and ``row_block`` (rb) rows in a ``lax.while_loop`` until the faithful
+  winner is decided; torch has no data-dependent loop without a host
+  sync.  This step evaluates every criterion on the full
+  ``(k_pad, r_cap, n_dev)`` candidate space of the compacted top-k
+  sources at once — the reference's ``source_block=k``, ``row_block ≥
+  r_cap`` tile, which its own tests pin as move-for-move identical — and
+  reduces it per row, all in one launch of kernel K1
+  (:func:`repro_torch.kernels.ops.bind_select_rows`), which never writes
+  the mask to device memory.  ``k_pad`` rounds k up to a multiple of kb:
+  as the reference's ``jnp.pad`` does, positions ``k..k_pad-1`` take
+  device 0 and its rows, are never available, and are evaluated, counted
+  and cached like any position.  The walk's outcome at any kb is a closed
+  form of K1's outputs, with masked reductions and no loop
+  (:meth:`_Chunk.frontier`, :meth:`_Chunk.certified`,
+  :meth:`_Chunk.walked`):
 
   - the winner is the first compacted position ``p < n_avail`` whose
     source has a row with a legal destination; its row is the first such
-    row in faithful order, its destination K1's ``dst``;
+    row in faithful order, its destination K1's ``dst``; it sits in block
+    ``p // kb`` — the walk's order never changes the winner;
   - ``sources_tried = rank + 1`` with ``rank`` the winner's position in
     the uncompacted order, and ``bound_skips = rank - p``;
-  - the newly pruned sources are the positions ``q < p`` (every
-    ``q < n_avail`` when nothing wins) whose candidate mask — every
-    criterion but the variance test — is empty on every row.
+  - each block before the winner's (every block up to the one holding
+    position ``n_avail - 1`` when nothing wins, block 0 when nothing is
+    available) walks as many row blocks as its longest slot, at least
+    one, a slot past ``n_avail`` counting as empty; the winner's block
+    walks up to the row block where the winner has found its row and
+    every fuller slot of the block has run out of rows;
+  - the newly pruned sources are the available positions the walk
+    resolved whose candidate mask — every criterion but the variance
+    test — is empty on every row: every one in a block walked whole, and
+    in the winner's block every other position whose rows all lay in the
+    tiles walked, after the winner too.
 
   So moves, ``sources_tried``, ``bound_hits`` and ``pruned_sources`` are
-  the reference's exactly, and the step has no data-dependent loop (a
-  later fleet port can add a leading lane axis to every tensor).
+  the reference's exactly at every kb, and the step has no
+  data-dependent loop (a later fleet port can add a leading lane axis to
+  every tensor).  At kb 1 a tile is one position's row block and the
+  same closed form takes fewer operations.
 * **Moves apply as masked updates**: ``torch.where(ok, new, old)`` and
   indexed writes, in place on the carry, so a step that finds nothing
   (or runs after convergence) changes no value.
@@ -65,21 +81,22 @@ index and a positive out-of-range one is a device-side assert.
   fresh build's bitwise, apart from the row table's padding width and
   source-bound certificates kept across a foreign movement.
 
-* **The opt-ins** keep the reference's geometry (``source_block`` 1,
-  ``row_block`` rows a block), so each counter they feed is the
-  reference's.  The walk the reference would have made — which
-  (source position, row block) tiles its ``lax.while_loop`` visits — is
-  a closed form of the step's own results (:meth:`_Chunk.walked`).
-  ``legality_cache`` keeps, per compacted source position, every row's
-  candidate mask (every criterion but the variance test) tagged with its
-  device and per-block clean bits; K1's cached instantiation reads the
-  clean blocks of a position whose tag matches and evaluates the rest,
-  and each move repairs the cache (dirty bits for the endpoints' slots
-  and the moved PG's blocks, and the endpoints' columns recomputed).
-  Device telemetry (tiles walked, tiles holding a candidate, cache hits
-  and misses) is issued only while a tracer is installed and rides the
-  chunk's one fetch.  ``pipeline`` issues chunk *i+1* before the host
-  turns chunk *i* into moves, under the reference's gate.
+* **The opt-ins** follow the reference's tiles, so each counter they
+  feed is the reference's.  ``legality_cache`` keeps, per compacted
+  position (``k_pad`` of them), every row's candidate mask (every
+  criterion but the variance test) tagged with its device and per-row-
+  block clean bits.  A tile is a hit only where every one of its kb
+  slots is tagged with its source and clean in that row block; K1's
+  cached instantiation reads a hit tile's masks and evaluates the rest;
+  each walked miss tile's masks move into the cache and its slots are
+  tagged, a slot whose tag changed losing its other clean blocks.  Each
+  move repairs the cache (dirty bits for the endpoints' slots, padding
+  slots included, and the moved PG's blocks, and the endpoints' columns
+  recomputed).  Device telemetry (tiles walked, tiles where any slot
+  holds a candidate, cache hits and misses, all per tile) is issued only
+  while a tracer is installed and rides the chunk's one fetch.
+  ``pipeline`` issues chunk *i+1* before the host turns chunk *i* into
+  moves, under the reference's gate.
 """
 
 from __future__ import annotations
@@ -167,23 +184,34 @@ class _Chunk:
     ``dyn`` (mutated in place): used, util (n,) f64; us, usq (1,) f64 —
     the maintained moments; acting (n_pg, S); pool_counts (P, n) f64;
     dst_ok (P, n) bool; rows_on (n, r_cap) with -1 padding; nrows,
-    order (n,); pruned (n,) bool; with the legality cache, c_dev (k,) —
-    the device each source position's entry was evaluated for, -1 none —
-    c_ok (k, r_cap, n) bool — the entries' candidate masks — and c_clean
-    (k, r_cap / rb) bool — the blocks of rows whose mask is current.
+    order (n,); pruned (n,) bool; with the legality cache, c_dev
+    (k_pad,) — the device each source position's entry was evaluated
+    for, -1 none — c_ok (k_pad, r_cap, n) bool — the entries' candidate
+    masks — and c_clean (k_pad, r_cap / rb) bool — the blocks of rows
+    whose mask is current.  ``kb`` sources make a block of the walk;
+    ``k_pad`` is k rounded up to a multiple of kb.
     ``const``: cap, dev_class, dev_in, dev_domain (L, n), the per-shard
     tables sh_* and ideal (P, n).  Integer tensors are int64 throughout
     (torch's index type).
     """
 
     def __init__(self, dyn: dict, const: dict, scal: dict, *, k: int,
-                 bounds: bool, rb: int = 8, cache: bool = False):
+                 bounds: bool, kb: int = 1, rb: int = 8,
+                 cache: bool = False):
         self.dyn, self.const, self.scal = dyn, const, scal
         self.k, self.bounds, self.rb, self.cache = k, bounds, rb, cache
+        # kb sources a block; the last block is padded to kb with device
+        # 0, as the reference's jnp.pad does
+        self.kb = kb
+        self.n_sb = -(-k // kb)
+        self.k_pad = self.n_sb * kb
         dev = const["cap"].device
         n = const["cap"].shape[0]
         self.dev_iota = torch.arange(n, device=dev)
-        self.pos = torch.arange(k, device=dev)
+        self.pos = torch.arange(self.k_pad, device=dev)
+        self.pad = torch.zeros(self.k_pad - k, dtype=I64, device=dev)
+        self.sb_iota = torch.arange(self.n_sb, device=dev)
+        self.pos_sb = self.pos // kb            # each position's block
         self.cap_lim = legality.capacity_limit(const["cap"],
                                                scal["headroom"])
         # K1 bound to this carry (checked once; a re-pad rebinds it)
@@ -201,7 +229,7 @@ class _Chunk:
         ``c_new`` is where K1 writes the rows it evaluates; only the
         blocks the walk reached move into ``c_ok``, so a position the walk
         did not reach keeps its entry for the device it was tagged with."""
-        k, r_cap, dev = self.k, self.r_cap, self.dev_iota.device
+        k, r_cap, dev = self.k_pad, self.r_cap, self.dev_iota.device
         n = self.dev_iota.shape[0]
         self.dyn["c_dev"] = torch.full((k,), -1, dtype=I64, device=dev)
         self.dyn["c_ok"] = torch.zeros((k, r_cap, n), dtype=torch.bool,
@@ -214,33 +242,101 @@ class _Chunk:
 
     def sources(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The step's top-k sources: (the fullest-first ``order_k``, the
-        order the step scans them in, the 0-dim count of available ones).
-        Under source bounds the unpruned sources come first (fullest-first
-        order preserved) and the pruned ones are parked at the back."""
+        ``k_pad`` positions the step scans, the 0-dim count of available
+        ones).  Under source bounds the unpruned sources come first
+        (fullest-first order preserved) and the pruned ones are parked at
+        the back; positions ``k..k_pad-1`` pad the last source block with
+        device 0 and are never available."""
         order_k = self.dyn["order"][:self.k]  # maintained argsort(-util)
         if self.bounds:
-            return (order_k, *compact_parked(order_k,
-                                             self.dyn["pruned"][order_k]))
-        return order_k, order_k, torch.full((), self.k,
-                                            device=self.pos.device)
+            src_order, n_avail = compact_parked(order_k,
+                                                self.dyn["pruned"][order_k])
+        else:
+            src_order = order_k
+            n_avail = torch.full((), self.k, device=self.pos.device)
+        if self.k_pad > self.k:
+            src_order = torch.cat([src_order, self.pad])
+        return order_k, src_order, n_avail
 
-    def walked(self, p, ri, n_avail, src_order, active) -> torch.Tensor:
-        """(k, r_cap / rb) bool: the (source position, row block) tiles
-        the reference's walk visits in this step (source_block 1), from
-        the step's results: the winner's position ``p`` (k: none) and its
-        first legal row ``ri``.  Each position before the winner (every
-        available one when nothing wins) walks all its blocks, at least
-        one; the winner walks up to the block of ``ri``; with no source
-        available only tile (0, 0) is walked; an inactive step walks
-        nothing."""
-        rb, pos = self.rb, self.pos[:, None]
-        blk = torch.arange(self.r_cap // rb, device=pos.device)[None, :]
-        nrows = self.dyn["nrows"][src_order]
-        blocks = ((nrows + rb - 1) // rb).clamp(min=1)[:, None]
-        before = (pos < torch.minimum(p, n_avail)) & (blk < blocks)
-        winner = (pos == p) & (blk <= ri // rb)
-        first = (n_avail == 0) & (pos == 0) & (blk == 0)
-        return (before | winner | first) & active
+    def hits(self, src_order) -> tuple:
+        """The legality cache as this step reads it: (the (k_pad,) tags
+        that match ``src_order``, the (k_pad, r_cap / rb) blocks K1 reads
+        from the cache, the (n_sb, r_cap / rb) tiles that hit).  A tile
+        hits only where every one of its kb slots does; on a miss K1
+        evaluates all of them."""
+        tag = self.dyn["c_dev"] == src_order
+        hit_pos = hit_tile = tag[:, None] & self.dyn["c_clean"]
+        if self.kb > 1:
+            hit_tile = hit_pos.view(self.n_sb, self.kb, -1).all(dim=1)
+            hit_pos = hit_tile.repeat_interleave(self.kb, dim=0)
+        return tag, hit_pos, hit_tile
+
+    def frontier(self, p, ri, n_avail, src_order) -> tuple:
+        """Where the reference's walk stops at kb > 1, from the winner's
+        position ``p`` (k: none) and its first legal row ``ri``: (the
+        (k_pad,) row blocks each position spans, at least one and one for
+        a position past ``n_avail``; the count of source blocks walked
+        whole — every block before the winner's, else every block up to
+        the one holding position ``n_avail - 1``, block 0 alone when
+        nothing is available; the winner's block; the last row block the
+        winner's block walks, where its first fuller slots have resolved
+        and the winner has found its row)."""
+        rb, kb, pos = self.rb, self.kb, self.pos
+        nrows = torch.where(pos < n_avail, self.dyn["nrows"][src_order], 0)
+        blocks = ((nrows + rb - 1) // rb).clamp(min=1)
+        sb_w = p // kb
+        n_full = torch.where(p < self.k, sb_w,
+                             (n_avail.clamp(min=1) - 1) // kb + 1)
+        fuller = (self.pos_sb == sb_w) & (pos < p)
+        c_dec = torch.maximum(ri // rb,
+                              torch.where(fuller, blocks - 1, 0).amax())
+        return blocks, n_full, sb_w, c_dec
+
+    def certified(self, p, n_avail, cand_src, geo=None) -> torch.Tensor:
+        """(k_pad,) bool: the positions the walk resolved empty with no
+        candidate pair on any row.  At kb 1, every available position
+        before the winner; at kb > 1 (``geo``: :meth:`frontier`'s result),
+        every available position of a block walked whole, and in the
+        winner's block every other one whose rows all lay in the tiles
+        walked, after the winner too."""
+        pos = self.pos
+        if self.kb == 1:
+            return (pos < p) & (pos < n_avail) & ~cand_src
+        blocks, n_full, sb_w, c_dec = geo
+        sb = self.pos_sb
+        part = ((sb == sb_w) & (p < self.k) & (pos != p)
+                & (blocks <= c_dec + 1))
+        return ((sb < n_full) | part) & (pos < n_avail) & ~cand_src
+
+    def walked(self, p, ri, n_avail, src_order, active, geo=None
+               ) -> torch.Tensor:
+        """(n_sb, r_cap / rb) bool: the (source block, row block) tiles
+        the reference's walk visits in this step, from the step's results:
+        the winner's position ``p`` (k: none) and its first legal row
+        ``ri``.  A block before the winner's (every block up to the last
+        available position's when nothing wins) walks as many row blocks
+        as its longest slot, at least one; the winner's block walks up to
+        :meth:`frontier`'s last row block; with no source available only
+        tile (0, 0) is walked; an inactive step walks nothing.  ``geo``:
+        :meth:`frontier`'s result (kb > 1).  At kb 1 a tile is one
+        position's row block, and the same outcome takes fewer
+        operations."""
+        rb = self.rb
+        blk = torch.arange(self.r_cap // rb, device=self.pos.device)[None, :]
+        if self.kb == 1:
+            pos = self.pos[:, None]
+            nrows = self.dyn["nrows"][src_order]
+            blocks = ((nrows + rb - 1) // rb).clamp(min=1)[:, None]
+            before = (pos < torch.minimum(p, n_avail)) & (blk < blocks)
+            winner = (pos == p) & (blk <= ri // rb)
+            first = (n_avail == 0) & (pos == 0) & (blk == 0)
+            return (before | winner | first) & active
+        blocks, n_full, sb_w, c_dec = geo
+        sb = self.sb_iota[:, None]
+        longest = blocks.view(self.n_sb, self.kb).amax(dim=1)[:, None]
+        whole = (sb < n_full) & (blk < longest)
+        part = (sb == sb_w) & (p < self.k) & (blk <= c_dec)
+        return (whole | part) & active
 
     def select(self, active: torch.Tensor, tel: torch.Tensor | None = None):
         """One §3.1 planning step's selection over the full candidate
@@ -248,28 +344,27 @@ class _Chunk:
         and the telemetry ``tel`` (where given) and returns (found, row,
         src, dst, tried, skipped), each (1,)."""
         d, c, s = self.dyn, self.const, self.scal
-        k, r_cap = self.k, self.r_cap
+        k, kb, r_cap = self.k, self.kb, self.r_cap
         pos = self.pos
         order_k, src_order, n_avail = self.sources()
         # every criterion and the reduction in one K1 launch; ``any_row``
-        # is already False for parked sources
+        # is already False for parked and padding positions
         if self.cache:
-            tag = d["c_dev"] == src_order
-            hit_blk = tag[:, None] & d["c_clean"]
+            tag, hit_pos, hit_tile = self.hits(src_order)
             any_row, dst, cand_src, cand_row = self.select_rows(
-                src_order, n_avail, cache_ok=d["c_ok"], hit_blk=hit_blk,
+                src_order, n_avail, cache_ok=d["c_ok"], hit_blk=hit_pos,
                 rb=self.rb, cache_out=self.c_new, cand_row=True)
         elif tel is not None:
             any_row, dst, cand_src, cand_row = self.select_rows(
                 src_order, n_avail, cand_row=True)
         else:
             any_row, dst, cand_src = self.select_rows(src_order, n_avail)
-        any_row = any_row.view(k, r_cap)
-        dst = dst.view(k, r_cap)
-        rows_k = d["rows_on"][src_order]                       # (k, R)
+        any_row = any_row.view(self.k_pad, r_cap)
+        dst = dst.view(self.k_pad, r_cap)
+        rows_k = d["rows_on"][src_order]                  # (k_pad, R)
 
         # winner: the first available source with a legal row
-        src_has = any_row.any(dim=1)                           # (k,)
+        src_has = any_row.any(dim=1)                           # (k_pad,)
         p = torch.where(src_has, pos, k).amin()                # k: none
         found = (p < k).view(1)
         jw = p.clamp(max=k - 1).view(1)
@@ -278,37 +373,48 @@ class _Chunk:
         row = rows_k.index_select(0, jw)[0].index_select(0, ri)
         win_dst = dst.index_select(0, jw)[0].index_select(0, ri).to(I64)
         win_dev = src_order.index_select(0, jw)
+        geo = None
+        if kb > 1 and (self.bounds or self.cache or tel is not None):
+            geo = self.frontier(p, ri, n_avail, src_order)
         if self.bounds:
             # rank in the *full* fullest-first order: sources_tried stays
             # the faithful histogram; rank − p scans were certificate skips
             rank = _first_true(order_k == win_dev).view(1)
             # certificates: scanned, fruitless sources with no candidate
             # pair on any row — the verdict the variance test cannot undo
-            prunable = (pos < p) & (pos < n_avail) & ~cand_src & active
+            prunable = self.certified(p, n_avail, cand_src, geo) & active
+            # the first k positions are distinct devices; the padding
+            # repeats device 0 and is never certified
+            srcs, prunable = src_order[:k], prunable[:k]
             pr = d["pruned"]
-            pr[src_order] = pr[src_order] | prunable    # src_order: distinct
+            pr[srcs] = pr[srcs] | prunable
         else:
             rank = jw
         if self.cache or tel is not None:
-            walked = self.walked(p, ri, n_avail, src_order, active)
+            walked = self.walked(p, ri, n_avail, src_order, active, geo)
             if tel is not None:
                 nb = r_cap // self.rb
-                cand_blk = cand_row.view(k, nb, self.rb).any(dim=2)
-                counts = [walked.sum(), (walked & cand_blk).sum()]
+                cand_tile = cand_row.view(self.k_pad, nb, self.rb).any(dim=2)
+                if kb > 1:                  # any slot of the tile
+                    cand_tile = cand_tile.view(self.n_sb, kb, nb).any(dim=1)
+                counts = [walked.sum(), (walked & cand_tile).sum()]
                 if self.cache:
-                    counts += [(walked & hit_blk).sum(),
-                               (walked & ~hit_blk).sum()]
+                    counts += [(walked & hit_tile).sum(),
+                               (walked & ~hit_tile).sum()]
                 tel[:len(counts)] += torch.stack(counts)
             if self.cache:
-                self._walk_cache(walked, tag, hit_blk, src_order)
+                if kb > 1:
+                    walked = walked.repeat_interleave(kb, dim=0)
+                self._walk_cache(walked, tag, hit_pos, src_order)
         return found, row, win_dev, win_dst, rank + 1, rank - jw
 
     def _walk_cache(self, walked, tag, hit_blk, src_order) -> None:
-        """The cache after the reference's walk: each tile walked on a
-        miss takes the mask K1 just evaluated; a walked position is tagged
-        with its source, and its clean blocks are those it kept under the
-        same tag and the ones walked."""
-        d, k, rb = self.dyn, self.k, self.rb
+        """The cache after the reference's walk, per position: each block
+        walked on a miss of its tile takes the mask K1 just evaluated; a
+        position whose source block was walked is tagged with its source
+        (padding with device 0), and its clean blocks are those it kept
+        under the same tag and the ones walked."""
+        d, k, rb = self.dyn, self.k_pad, self.rb
         c_ok, c_clean, c_dev = d["c_ok"], d["c_clean"], d["c_dev"]
         shape = (k, -1, rb, c_ok.shape[2])
         take = (walked & ~hit_blk)[:, :, None, None]
@@ -417,16 +523,16 @@ class _Chunk:
         the moved PG go dirty, and the endpoints' two columns of every
         entry are evaluated again."""
         d, c = self.dyn, self.const
-        k, rb = self.k, self.rb
+        k, rb = self.k_pad, self.rb
         c_dev, c_ok, c_clean = d["c_dev"], d["c_ok"], d["c_clean"]
         tags = c_dev.clamp(min=0)
-        rows_c = d["rows_on"][tags]                              # (k, R)
+        rows_c = d["rows_on"][tags]                          # (k_pad, R)
         has_pg = (rows_c >= 0) & (c["sh_pg"][rows_c.clamp(min=0)] == pgi)
         dirty = (((c_dev == src) | (c_dev == dst))[:, None]
                  | has_pg.view(k, -1, rb).any(dim=2))
         c_clean.copy_(torch.where(ok, c_clean & ~dirty, c_clean))
         cols = candidate_masks(tags, rows_c, self.cap_lim, d, c, self.scal,
-                               devs=both)["cand"]                # (k, R, 2)
+                               devs=both)["cand"]            # (k_pad, R, 2)
         c_ok[:, :, both] = torch.where(ok, cols, c_ok[:, :, both])
 
     # -- chunk ---------------------------------------------------------------
@@ -516,13 +622,13 @@ class BatchPlanner:
                  source_bounds: bool = True,
                  pipeline: bool = True,
                  device=None):
-        if source_block != 1:
-            raise ValueError(f"source_block={source_block!r}: the PyTorch "
-                             f"batch engine walks one source a block "
-                             f"(source_block=1)")
         self.state = state
         self.cfg = cfg or EquilibriumConfig()
         self.chunk = chunk
+        # sources a block of the walk: clamped to k here, and again
+        # wherever k is recomputed (a build, a device add), so it only
+        # ever shrinks
+        self._kb = min(max(1, source_block), self._k())
         self.row_capacity = row_capacity
         self.legality_cache = legality_cache
         self.source_bounds = source_bounds
@@ -566,6 +672,10 @@ class BatchPlanner:
         state.subscribe(_deliver)
 
     # -- dense-state lifecycle ----------------------------------------------
+
+    def _k(self) -> int:
+        """The step's source count for the bound state's device axis."""
+        return min(self.cfg.k, max(self.state.n_devices, 1))
 
     def _round_cap(self, n: int) -> int:
         rb = self._rb
@@ -635,7 +745,7 @@ class BatchPlanner:
         self._pruned_mask = pruned.copy()    # the CPU carry shares memory
         self._pruned = int(pruned.sum())
         return _Chunk(dyn, const, scal, k=min(cfg.k, max(n_dev, 1)),
-                      bounds=self.source_bounds, rb=self._rb,
+                      bounds=self.source_bounds, kb=self._kb, rb=self._rb,
                       cache=self.legality_cache)
 
     def _build(self) -> None:
@@ -655,6 +765,7 @@ class BatchPlanner:
         self._dense = None
         self._step = None
         self._epoch = state.mutation_epoch
+        self._kb = min(self._kb, self._k())
         if not state.acting or not state.pools or state.n_devices < 2:
             return
         dense = DenseState(state)
@@ -905,6 +1016,8 @@ class BatchPlanner:
             dense.cap = leg.cap
             const.update(self._device_const(dense))
         n_dev = dense.n_dev = state.n_devices
+        if added:
+            self._kb = min(self._kb, self._k())
         # the host views a cold build reads, from the mutated state
         dense.used = state.used()
         dense.util = dense.used / dense.cap

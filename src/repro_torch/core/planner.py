@@ -314,9 +314,9 @@ class BatchEquilibriumPlanner:
     cold-starts).  ``warm=False`` forces a cold start on every call.
     ``device=None`` runs on the CUDA card and raises when there is none;
     ``device="cpu"`` runs the same engine with the kernels' plain
-    versions.  ``legality_cache``, ``pipeline`` (on by default) and
-    ``row_block`` are the engine's opt-ins; ``source_block`` other than 1
-    raises ``ValueError``.
+    versions.  ``legality_cache``, ``pipeline`` (on by default),
+    ``source_block`` and ``row_block`` (the walk's tile) are the engine's
+    options.
     """
 
     name = "equilibrium_batch"
@@ -327,14 +327,11 @@ class BatchEquilibriumPlanner:
                  row_capacity: int | None = None, warm: bool = True,
                  legality_cache: bool = False, source_bounds: bool = True,
                  pipeline: bool = True, device=None):
-        if source_block != 1:
-            raise ValueError(f"source_block={source_block!r}: the PyTorch "
-                             f"batch engine walks one source a block "
-                             f"(source_block=1)")
         self.cfg = cfg or EquilibriumConfig()
         self.warm = warm
         self.device = resolve_device(device, "equilibrium_batch")
-        self._engine_kwargs = dict(chunk=chunk, row_block=row_block,
+        self._engine_kwargs = dict(chunk=chunk, source_block=source_block,
+                                   row_block=row_block,
                                    row_capacity=row_capacity,
                                    legality_cache=legality_cache,
                                    source_bounds=source_bounds,

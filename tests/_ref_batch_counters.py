@@ -19,13 +19,20 @@ the legality cache on and off) into
 ``tests/fixtures/batch_counters_cluster_b.json``, which ``chip_smoke.py``
 holds the port's run on the card to::
 
-    PYTHONPATH=src python tests/_ref_batch_counters.py   # about 45 s
+    PYTHONPATH=src python tests/_ref_batch_counters.py   # about 75 s
+    PYTHONPATH=src python tests/_ref_batch_counters.py --source-block 3 25
+
+At ``source_block`` 1 (the default) the runs are keyed
+``legality_cache=<bool>``, at any other block
+``source_block=<kb>,legality_cache=<bool>``; the runs of other keys are
+kept as they are (about 45 s a run).
 
 Imports JAX: the card's tests and ``chip_smoke.py`` read the JSON only.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import pathlib
@@ -104,18 +111,41 @@ def record(state, **kw) -> dict:
     return {"moves": len(rec.pop("moves")), **rec}
 
 
-def main() -> int:
+def as_recorded(run: dict) -> dict:
+    """A run read back from the fixture as :func:`record` gives it: the
+    histogram's keys integers again, so that the fixture is written in the
+    same bytes however often it is recorded."""
+    hist = {int(k): v for k, v in run["sources_tried_hist"].items()}
+    return {**run, "sources_tried_hist": hist}
+
+
+def run_key(source_block: int, cache: bool) -> str:
+    """The fixture's key of a run."""
+    key = f"legality_cache={cache}"
+    return key if source_block == 1 else f"source_block={source_block},{key}"
+
+
+def main(argv=None) -> int:
     from repro.core.clustergen import cluster_b
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--source-block", type=int, nargs="+", default=[1],
+                    help="source blocks to record (default 1)")
+    args = ap.parse_args(argv)
     out = {"cluster": "cluster_b(scale=1)", "config": CLUSTER_B_CONFIG,
            "recorded_by": "tests/_ref_batch_counters.py", "runs": {}}
+    if FIXTURE.is_file():
+        out["runs"] = {key: as_recorded(run) for key, run in
+                       json.loads(FIXTURE.read_text())["runs"].items()}
     with patched():
-        for cache in (True, False):
-            t0 = time.perf_counter()
-            state = cluster_b(scale=1)
-            rec = record(state, legality_cache=cache, **CLUSTER_B_CONFIG)
-            out["runs"][f"legality_cache={cache}"] = rec
-            print(f"legality_cache={cache}: {rec['moves']} moves in "
-                  f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+        for kb in args.source_block:
+            for cache in (True, False):
+                t0 = time.perf_counter()
+                state = cluster_b(scale=1)
+                cfg = {**CLUSTER_B_CONFIG, "source_block": kb}
+                rec = record(state, legality_cache=cache, **cfg)
+                out["runs"][run_key(kb, cache)] = rec
+                print(f"{run_key(kb, cache)}: {rec['moves']} moves in "
+                      f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
     FIXTURE.parent.mkdir(parents=True, exist_ok=True)
     FIXTURE.write_text(json.dumps(out, indent=1, sort_keys=True) + "\n")
     return 0

@@ -54,12 +54,15 @@ def cluster_state(cluster: str) -> ClusterState:
     return ClusterState.from_plain(_built(cluster))
 
 
-def carry(cluster: str, steps: int, bounds: bool, parked: bool) -> tuple:
+def carry(cluster: str, steps: int, bounds: bool, parked: bool,
+          source_block: int = 1) -> tuple:
     """The arguments of ``select_rows`` (src_order, n_avail, cap_lim, dyn,
-    const, scal), on the CPU."""
+    const, scal), on the CPU; at a ``source_block`` that does not divide
+    k, ``src_order`` is padded with device 0 to a whole number of
+    blocks."""
     planner = BatchPlanner(cluster_state(cluster),
                            chunk=max(steps, 1), source_bounds=bounds,
-                           device="cpu")
+                           source_block=source_block, device="cpu")
     planner.sync()
     step = planner._step
     if steps:
@@ -148,14 +151,16 @@ def cache_states(args: tuple) -> list[tuple[str, dict, torch.Tensor]]:
 
 
 def engine_cache(cluster: str, steps: int, legal_hit: bool = False,
-                 device="cpu") -> tuple[tuple, dict]:
+                 device="cpu", source_block: int = 1) -> tuple[tuple, dict]:
     """The engine's carry with the legality cache on after its first step
     (at most ``steps``, chunk 1) after which the next step reads some
     blocks from the cache and evaluates others (with ``legal_hit``: reads
     a legal pair from it): that step's ``select_rows`` arguments and its
-    cache, as the step reads them."""
+    cache, as the step reads them (at a ``source_block`` above 1, the
+    padded sources and each tile's hit spread over its slots)."""
     planner = BatchPlanner(cluster_state(cluster), chunk=1,
-                           legality_cache=True, device=device)
+                           legality_cache=True, source_block=source_block,
+                           device=device)
     planner.sync()
     step = planner._step
     d = step.dyn
@@ -163,9 +168,9 @@ def engine_cache(cluster: str, steps: int, legal_hit: bool = False,
         step.run(1)
         _, src_order, n_avail = step.sources()
         args = (src_order, n_avail, step.cap_lim, d, step.const, step.scal)
-        hit_blk = (d["c_dev"] == src_order)[:, None] & d["c_clean"]
+        _, hit_blk, _ = step.hits(src_order)
         hit_rows = hit_blk.repeat_interleave(step.rb, 1)
-        legal = select_rows_ref(*args)[0].view(step.k, -1) & hit_rows
+        legal = select_rows_ref(*args)[0].view(step.k_pad, -1) & hit_rows
         if bool(hit_blk.any()) and not bool(hit_blk.all()) \
                 and (bool(legal.any()) or not legal_hit):
             return args, dict(cache_ok=d["c_ok"].clone(), hit_blk=hit_blk,

@@ -28,19 +28,15 @@ import torch
 import repro.core.equilibrium_batch as ref_batch
 from _ref_batch_counters import (CLUSTER_B_CONFIG, COUNTERS, FIXTURE,
                                  counted_plan, record, reference_attrs)
+from _lockstep import ROW, WARM, grow, lockstep, quiet_move, totals
 from _select_rows_carries import (CARRIES, cache_states, carry, carry_id,
                                   cluster_state, engine_cache)
 from repro import obs as ref_obs
-from repro.core import Device as RefDevice
 from repro.core import Movement as RefMovement
-from repro.core import PlacementRule as RefRule
-from repro.core import Pool as RefPool
 from repro.core import clustergen as ref_gen
-from repro.core.crush import place_pg as ref_place
 from repro.core.equilibrium import EquilibriumConfig as RefConfig
 from repro_torch import obs
-from repro_torch.core import (Device, Movement, PlacementRule, Pool, TiB,
-                              legality, place_pg)
+from repro_torch.core import Movement
 from repro_torch.core import clustergen as port_gen
 from repro_torch.core.equilibrium import EquilibriumConfig
 from repro_torch.core.equilibrium_batch import BatchPlanner
@@ -51,9 +47,6 @@ from repro_torch.kernels.ref import select_rows_masks, select_rows_ref
 from repro_torch.sim import generate_timeline
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-#: the registry counters as the literal rows list them
-ROW = ("tiles_walked", "cand_tiles", "cache_hits", "cache_misses",
-       "cache_repairs", "chunks_overlapped", "repads")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -76,46 +69,6 @@ def reference(monkeypatch):
 
 # ---------------------------------------------------------------------------
 # lockstep: the port against the reference, plan call by plan call
-
-
-def _grow(pool_bytes):
-    def fn(port, ref):
-        for s in (port, ref):
-            s.grow_pool(min(s.pools), pool_bytes)
-    return fn
-
-
-def lockstep(cluster: str, budgets, between=None, cfg=None, **kw
-             ) -> list[dict]:
-    """Plan each budget of ``budgets`` (None: to convergence) with the
-    reference engine and the port, each bound to its package's build of
-    ``cluster`` (a name in both ``clustergen`` modules) and with the
-    engine options ``kw``; ``between[i](port_state, ref_state)`` mutates
-    both states before plan ``i``.  Every plan call's record
-    (:func:`counted_plan`) must be equal; returns the port's."""
-    port_state = getattr(port_gen, cluster)()
-    ref_state = getattr(ref_gen, cluster)()
-    ref = ref_batch.BatchPlanner(ref_state, RefConfig(**(cfg or {})), **kw)
-    port = BatchPlanner(port_state, EquilibriumConfig(**(cfg or {})),
-                        device="cpu", **kw)
-    got = []
-    for i, budget in enumerate(budgets):
-        if between and i in between:
-            between[i](port_state, ref_state)
-        want = counted_plan(ref, ref_obs, budget)
-        have = counted_plan(port, obs, budget)
-        assert have == want, (i, {key: (have[key], want[key])
-                                  for key in have if have[key] != want[key]})
-        got.append(have)
-    return got
-
-
-def totals(records: list[dict]) -> dict:
-    """Moves and counters summed over plan calls, keyed as :data:`ROW`."""
-    out = {"moves": sum(len(r["moves"]) for r in records)}
-    for key in ROW:
-        out[key] = sum(r[f"batch.{key}"] for r in records)
-    return out
 
 
 @pytest.mark.parametrize("bounds", [True, False], ids=["bounds", "nobounds"])
@@ -144,10 +97,10 @@ TABLE = {
     "cluster_a-16-repad": ("cluster_a", dict(chunk=16, row_capacity=1),
                            [None], None, (44, 348, 137, 82, 266, 44, 1, 1)),
     "cluster_a-8-six-plans": ("cluster_a", dict(chunk=8), [10] * 6,
-                              {3: _grow(1e12)},
+                              {3: grow(1e12)},
                               (44, 369, 144, 81, 288, 46, 2, 0)),
     "small-8-six-plans": ("small_test_cluster", dict(chunk=8), [10] * 6,
-                          {3: _grow(1e12)}, (25, 159, 63, 19, 140, 25, 1, 0)),
+                          {3: grow(1e12)}, (25, 159, 63, 19, 140, 25, 1, 0)),
     "small-64": ("small_test_cluster", dict(chunk=64), [None], None,
                  (25, 113, 49, 19, 94, 25, 0, 0)),
     "sim_cluster-16": ("sim_cluster", dict(chunk=16), [None], None,
@@ -200,32 +153,6 @@ def test_row_block_matches_reference(reference, rb):
     lockstep("cluster_a", [None], chunk=8, row_block=rb, legality_cache=True)
 
 
-def _quiet_move(state, avoid):
-    """A legal move that leaves every certificate of the devices ``avoid``
-    standing: off the emptiest device that can shed a shard whose PG none
-    of them holds, from a pool whose destination-count criterion already
-    passes there (no count flip), onto the emptiest device that takes
-    it."""
-    util = state.utilization()
-    order = sorted(range(len(util)), key=lambda i: (util[i], i))
-    ids = {state.devices[i].id for i in avoid}
-    slack = EquilibriumConfig().count_slack
-    for i in order:
-        osd = state.devices[i].id
-        for pg, slot in sorted(state.shards_on[osd]):
-            pool = state.pools[pg[0]]
-            if osd in ids or ids & set(state.acting[pg]) \
-                    or not legality.dst_count_ok(
-                        state.pool_counts[pg[0]][i],
-                        state.ideal_shard_count(pool)[i], slack):
-                continue
-            for j in order:
-                dst = state.devices[j].id
-                if dst not in ids and state.move_is_legal(pg, slot, dst):
-                    return pg, slot, osd, dst, state.shard_sizes[pg]
-    raise AssertionError("no quiet move")
-
-
 def test_every_top_source_parked(reference):
     """n_avail 0: cluster_d at k 1 converges with its fullest source
     certified; a foreign move that leaves the certificate standing is
@@ -238,7 +165,7 @@ def test_every_top_source_parked(reference):
                                  legality_cache=True)
     first = counted_plan(port, obs)
     assert first == counted_plan(ref, ref_obs)
-    pg, slot, src, dst, size = _quiet_move(
+    pg, slot, src, dst, size = quiet_move(
         port_state, port._step.dyn["order"][:1].tolist())
     port_state.apply(Movement(pg, slot, src, dst, size))
     ref_state.apply(RefMovement(pg, slot, src, dst, size))
@@ -248,42 +175,6 @@ def test_every_top_source_parked(reference):
     assert again == counted_plan(ref, ref_obs)
     assert again["moves"] == [] and again["batch.tiles_walked"] == 1
     assert again["batch.cache_misses"] == 1
-
-
-def _pool_create(port, ref):
-    for s, m, place in ((port, (Pool, PlacementRule), place_pg),
-                        (ref, (RefPool, RefRule), ref_place)):
-        pid = 1 + max(s.pools)
-        pool = m[0](pid, "fresh", 8, m[1].replicated(2, "host", "hdd"),
-                    stored_bytes=0.4 * TiB)
-        s.add_pool(pool, {(pid, i): place(s.devices, pool, i, seed=3)
-                          for i in range(8)},
-                   {(pid, i): pool.nominal_shard_size for i in range(8)})
-
-
-def _foreign(port, ref):
-    pg, slot, src, dst, size = _quiet_move(port, [])
-    port.apply(Movement(pg, slot, src, dst, size))
-    ref.apply(RefMovement(pg, slot, src, dst, size))
-
-
-def _each(fn):
-    def both(port, ref):
-        fn(port, Device)
-        fn(ref, RefDevice)
-    return both
-
-
-#: the warm sequence's mutations, before the plan of the same index
-WARM = {
-    1: _grow(0.5e12),
-    2: _each(lambda s, D: s.mark_out(s.devices[1].id)),
-    3: _each(lambda s, D: s.mark_out(s.devices[1].id, out=False)),
-    4: _each(lambda s, D: s.add_device(D(id=900, capacity=8 * TiB,
-                                         device_class="hdd", host="hx"))),
-    5: _foreign,
-    6: _pool_create,
-}
 
 
 @pytest.mark.parametrize("cluster", ["small_test_cluster", "cluster_a"])

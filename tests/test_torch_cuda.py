@@ -492,6 +492,26 @@ def test_k1_cached_select_rows_on_the_engines_cache(card, cluster):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("cluster", ["small_test_cluster", "sim_cluster"])
+def test_k1_select_rows_at_a_padded_source_block(card, cluster):
+    """The batch engine's input at source_block 3: k_pad positions with
+    device 0 in the padding and each tile's hit spread over its slots.
+    The uncached kernel, and the cached one on the engine's own cache
+    (staged and from device memory) and in each cache state, bitwise
+    the plain version's."""
+    args, cache = engine_cache(cluster, 60, source_block=3)
+    dev_args = to_device(args, card)
+    got = select_move.select_rows_fwd(*dev_args, cand_row=True)
+    want = select_rows_ref(*dev_args, cand_row=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("any", "dst", "cand_src", "cand_row"), got, want):
+        assert torch.equal(g, w), name
+    for limit in (None, 0):
+        _cached_matches_plain(args, cache, card, limit)
+    for _name, state, _fresh in cache_states(args):
+        _cached_matches_plain(args, state, card)
+
+
 def test_k1_cached_select_rows_reads_the_cache(card):
     """A legal pair cleared from a clean block of the engine's cache
     leaves the kernel's selection, as it leaves the plain version's."""

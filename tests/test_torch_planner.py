@@ -15,6 +15,7 @@ reference's invariant makes bit-identical to its batch lane."""
 import pytest
 import torch
 
+from _ref_batch_counters import reference_attrs
 from repro.core import clustergen as ref_gen
 from repro.core.equilibrium import EquilibriumConfig as RefConfig
 from repro.core.planner import create_planner as ref_create
@@ -221,9 +222,11 @@ def test_degenerate_clusters_plan_nothing():
     assert res.moves == [] and validate_stats(res.stats) == []
 
 
-def test_legality_cache_is_accepted_and_source_block_refused():
-    """The front door takes the engine's opt-ins and reports them; a
-    source block other than 1 raises."""
+def test_legality_cache_and_source_block_are_accepted(monkeypatch):
+    """The front door takes the engine's opt-ins and reports them, and
+    plans at source_block 0 and 2 with the reference batch planner's
+    moves, histogram and certificate counters (its engine runs here with
+    ``tests/_ref_batch_counters.py``'s bindings)."""
     res = create_planner("equilibrium_batch", device="cpu",
                          legality_cache=True, pipeline=False,
                          row_block=4).plan(port_gen.small_test_cluster(),
@@ -231,8 +234,20 @@ def test_legality_cache_is_accepted_and_source_block_refused():
     assert res.stats["legality_cache"] is True
     assert res.stats["pipeline"] is False
     assert len(res.moves) == 4 and validate_stats(res.stats) == []
-    with pytest.raises(ValueError, match="source_block"):
-        create_planner("equilibrium_batch", device="cpu", source_block=2)
+    for mod, name, value in reference_attrs():
+        monkeypatch.setattr(mod, name, value, raising=False)
+    keys = ("sources_tried_hist", "bound_hits", "pruned_sources",
+            "legality_cache", "source_bounds", "pipeline")
+    for kb in (0, 2):
+        want = ref_create("equilibrium_batch", source_block=kb).plan(
+            ref_gen.small_test_cluster())
+        got = create_planner("equilibrium_batch", device="cpu",
+                             source_block=kb).plan(
+            port_gen.small_test_cluster())
+        assert as_tuples(got.moves) == as_tuples(want.moves)
+        assert {k: got.stats[k] for k in keys} == \
+            {k: want.stats[k] for k in keys}
+        assert validate_stats(got.stats) == []
 
 
 def test_mgr_matches_reference():

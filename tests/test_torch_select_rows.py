@@ -8,7 +8,9 @@ reduced by the reference's ``masked_select_ref`` under ``jax.enable_x64``.
 The carries (``tests/_select_rows_carries.py``) are the first steps of
 three paper clusters, the hybrid-rule cluster D among them, with and
 without source bounds and with parked sources, plus a knife's edge of the
-variance test on each side."""
+variance test on each side; and the input the engine gives at
+``source_block`` 3, its source positions padded with device 0 and, with
+the legality cache, each tile's hit spread over its slots."""
 
 import jax
 import jax.numpy as jnp
@@ -16,13 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from _select_rows_carries import (CARRIES, carry, carry_id, knife_edge,
-                                  variance_delta)
+from _select_rows_carries import (CARRIES, carry, carry_id, engine_cache,
+                                  knife_edge, variance_delta)
 from repro.core import legality as ref_legality
 from repro.kernels.ref import masked_select_ref as ref_masked_select_ref
 from repro_torch.kernels import select_move
 from repro_torch.kernels.ops import select_rows
-from repro_torch.kernels.ref import select_rows_ref
+from repro_torch.kernels.ref import select_rows_masks, select_rows_ref
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -116,6 +118,44 @@ def test_plain_matches_reference(case):
     any_p, _ = assert_matches_reference(args)
     if case[1] == 0:
         assert any_p.any()              # a first step has a legal move
+
+
+@pytest.mark.parametrize("cluster,k", [("small_test_cluster", 16),
+                                       ("cluster_a", 14), ("cluster_d", 25)])
+def test_plain_matches_reference_at_a_padded_source_block(cluster, k):
+    """The batch engine's input at source_block 3, where k is not a
+    multiple of 3: the positions past k repeat device 0 and lie past
+    ``n_avail``, with every third source parked; the plain version
+    evaluates them as the reference's mask does and selects none of
+    them."""
+    args = carry(cluster, 5, True, True, source_block=3)
+    src_order, n_avail = args[0], int(args[1])
+    assert src_order.shape[0] == -(-k // 3) * 3 > k > n_avail
+    assert (src_order[k:] == 0).all()
+    any_p, _ = assert_matches_reference(args)
+    R = args[3]["rows_on"].shape[1]
+    assert not any_p.view(-1, R)[n_avail:].any()
+
+
+@pytest.mark.parametrize("cluster", ["small_test_cluster", "sim_cluster"])
+def test_plain_reads_the_engines_cache_at_a_padded_source_block(cluster):
+    """The engine's own cache at source_block 3 on a step where some
+    tiles hit and some miss: each tile's hit is spread over its three
+    slots, padding slots included; every block read from the cache holds
+    the fresh evaluation, and the cached selection is the uncached one
+    and the reference's."""
+    args, cache = engine_cache(cluster, 60, source_block=3)
+    hit = cache["hit_blk"]
+    assert torch.equal(hit, hit[::3].repeat_interleave(3, dim=0))
+    fresh = select_rows_masks(*args)["cand"]
+    hit_rows = hit.repeat_interleave(cache["rb"], 1)
+    assert torch.equal(cache["cache_ok"][hit_rows], fresh[hit_rows])
+    out = cache["cache_ok"].clone()
+    got = select_rows_ref(*args, **cache, cache_out=out, cand_row=True)
+    want = select_rows_ref(*args, cand_row=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(out.view_as(fresh), fresh)
+    assert_matches_reference(args)
 
 
 @pytest.mark.parametrize("inside", [False, True], ids=["on", "inside"])

@@ -14,10 +14,11 @@ the count (a tree without it, as before the fusion, is counted as it
 is).  Prints one JSON line: operations a step in ``select`` (besides
 that launch), in ``apply``, and in the whole step with the launch.
 ``--telemetry`` counts the step as it runs while a tracer is installed
-(the device telemetry on), ``--cache`` with the legality cache on.
+(the device telemetry on), ``--cache`` with the legality cache on,
+``--source-block`` at another block of the walk (default 1).
 
     PYTHONPATH=src python tools/step_op_count.py [--cluster cluster_a]
-        [--telemetry] [--cache]
+        [--telemetry] [--cache] [--source-block 3]
 
 To count another checkout's engine, point ``PYTHONPATH`` at its
 ``src``.
@@ -57,9 +58,10 @@ class OpCount(TorchDispatchMode):
 
 
 def count(cluster: str, steps: int, telemetry: bool = False,
-          cache: bool = False) -> dict:
+          cache: bool = False, source_block: int = 1) -> dict:
     planner = eb.BatchPlanner(getattr(clustergen, cluster)(), device="cpu",
-                              legality_cache=cache)
+                              legality_cache=cache,
+                              source_block=source_block)
     planner.sync()
     step = planner._step
     fused = getattr(step, "select_rows", None)
@@ -86,7 +88,7 @@ def count(cluster: str, steps: int, telemetry: bool = False,
         step.run(steps, telemetry)
     launches = int(fused is not None)
     return {"cluster": cluster, "steps": steps, "telemetry": telemetry,
-            "legality_cache": cache,
+            "legality_cache": cache, "source_block": step.kb,
             "select_ops_per_step": select.n / steps,
             "select_launches_per_step": launches,
             "apply_ops_per_step": apply.n / steps,
@@ -99,10 +101,11 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--cache", action="store_true")
+    ap.add_argument("--source-block", type=int, default=1)
     args = ap.parse_args()
     torch.set_num_threads(1)
     print(json.dumps(count(args.cluster, args.steps, args.telemetry,
-                           args.cache)))
+                           args.cache, args.source_block)))
 
 
 if __name__ == "__main__":
