@@ -9,8 +9,9 @@ phases, one JSON line each, and exits non-zero if any fails:
 
 0. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions, the kernel build time; K1's fused kernel
-   ``select_rows_kernel`` keeps float64 rounding in each of its four
-   instantiations (staged or not, cached or not): its PTX (``nvcc -ptx``)
+   ``select_rows_kernel`` keeps float64 rounding in each of its six
+   instantiations (staged or not, cached or not, and the two uncached
+   ones with the fleet's lane axis): its PTX (``nvcc -ptx``)
    has no float64 ``fma`` and no add, subtract or multiply without
    ``.rn``, and every DFMA of its SASS belongs to one of its divisions;
    ``cuobjdump -sass`` of K2's library and of each of K3's four
@@ -102,9 +103,11 @@ phases, one JSON line each, and exits non-zero if any fails:
    serialize-and-replay check, every oracle a gate (legality and
    variance replayed on a pre-plan copy, the throttle's ledger every
    tick, agreement of move streams and metrics JSON, one rebuild of the
-   batch lane, replay); K1's ``select_rows`` once a step of the batch
-   lanes and ``masked_select`` once per source the legacy lanes
-   evaluated, both more than zero times; oracle checks by oracle,
+   batch and the fleet lane, replay; the fleet lane is a fleet of one on
+   the card); K1's ``select_rows`` once a step of the batch lanes and
+   once a step of the fleet lanes (counted apart) and ``masked_select``
+   once per source the legacy lanes evaluated, each more than zero
+   times; the fleet lane's seconds; oracle checks by oracle,
    timelines, lanes, moves and seconds; then the cluster-B lifecycle of
    ``cluster_b_lifecycle`` through the warm batch lane on the card
    behind the harness's replay proxy, its 24 ticks' moves replayed
@@ -173,10 +176,10 @@ phases, one JSON line each, and exits non-zero if any fails:
     those the reference engine recorded in
     ``tests/fixtures/batch_counters_cluster_b.json``, ``select_rows`` once
     a step and every launch cached; plan seconds with the cache on and
-    the pipeline off beside the defaults, five turns each; a profiled
-    first chunk with the cache; and phase ``fuzz``'s sweep through the
-    batch lane with the cache under a tracer, every oracle a gate,
-    against that phase's faithful and dense lanes;
+    the pipeline off beside the defaults, one untraced run each; a profiled
+    first chunk with the cache; and the ``quick`` part of phase ``fuzz``'s
+    sweep through the batch lane with the cache under a tracer, every
+    oracle a gate, against that phase's faithful and dense lanes;
 12. ``source_block`` (after ``batch_optins``): the walk's source block
     above 1, on exact copies of phase 3's cluster B to convergence at
     source block 3 (nine blocks, the last padded to 27 positions) and 25
@@ -190,14 +193,39 @@ phases, one JSON line each, and exits non-zero if any fails:
     cache) and ``masked_select`` never; one chunk at each block with the
     cache and the telemetry under ``set_sync_debug_mode("error")``; plan
     seconds of each run and of the default (source block 1, no cache),
-    medians of three untraced turns;
-13. the kernel table line (K1 twice: ``select_rows``'s uncached and,
+    one untraced run each;
+13. ``fleet`` (after ``source_block``): the fleet planner
+    (``repro_torch.fleet``) and K1 with a lane axis.  K1's lane launch
+    bitwise against the lane form of its plain version, staged and from
+    device memory, at the first step of the cluster-B fleet and of each
+    bucket of the paper fleet (padded devices, per-lane ``n_f``); its
+    times at the 8-lane shape, its bound counted from each lane's carry,
+    and the one-carry launch's times at lane 0 beside them.  The
+    cluster-B fleet: 8 exact copies of cluster B, lane i's pool 0 grown
+    by i x 10 TiB first, pinned to one bucket (row capacity 256),
+    ``FleetPlanner(chunk=64, row_block=8)`` to convergence: every lane's
+    moves and certificate counters equal to a serial ``BatchPlanner``
+    configured like a lane on an exact copy, lane 0 to
+    ``planner.tail.B1x.batch`` and phase 3's plan, one round fetch a
+    round, ``select_rows`` once a bucket step, no host sync in a fleet
+    chunk (``set_sync_debug_mode("error")``); the fleet step's PyTorch
+    operations untraced and traced (``tools/step_op_count.py``'s
+    ``OpCount``); a profiled fleet chunk.  Then the 8 serial plans, and
+    the fleet again with its first tick cut by an SLO of 0.0 s: every
+    lane's partial plan legal on replay and ``slo_expired``, its
+    continuation to convergence the uncut stream; the fleet's seconds
+    (set-up and plan) before and after the serial plans'.  The paper fleet
+    (clusters A to F, B phase 3's) in co-scheduled rounds to convergence,
+    each lane equal to its serial planner (cluster B to phase 3's plan);
+14. the kernel table line (K1 twice: ``select_rows``'s uncached and,
     as ``select_rows_cached``, its cached instantiation's launches and
     times; the uncached one's launches by path (the cold cluster-B plan, the warm
     lifecycle, the legacy lane's standalone reduction, the simulator's
     cluster-B lifecycle, the six scenarios, the fuzz sweep and corpus by
-    kernel, the cluster-B lifecycle under the fuzzer's oracles and phase
-    ``source_block``'s runs), and the standalone
+    kernel, the fleet lanes of the fuzz sweep and corpus, the cluster-B
+    lifecycle under the fuzzer's oracles, phase ``source_block``'s runs
+    and phase ``fleet``'s two fleets) and its 8-lane launch's times, and
+    the standalone
     reduction's launches and times at the legacy lane's shape beside
     them, with its times at the batch step's shape; K3 once: the
     tensor-core variant's launches and times at the zamba2 prefill, and
@@ -207,17 +235,26 @@ phases, one JSON line each, and exits non-zero if any fails:
 Kernel times come in two forms: ``ms``, CUDA events around calls the
 host issues back to back, and ``device_ms``, CUDA events around calls
 queued behind a sleep kernel, which the host's issue rate cannot set.
-The prefills' profiles must hold every K2 and K3 launch the run counted:
-the H100's profiler drops whole calls' records from some sessions, so a
-session that lost any is run again, three sessions at most; the sessions
-each profile took are printed before the kernel table line.
+The prefills' profiles must hold every K2 and K3 launch the run counted,
+and phase ``fleet``'s every K1 launch of its chunk.  On the H100 a
+profiler session loses the kernel records of its first launches, more of
+them the more sessions the process has had (``tools/profile_records.py``):
+so every session opens with :data:`LEAD_IN` launches of the sleep kernel,
+which take that loss and are left out of every count (the records of
+them lost go to the profile log).  A session that still lost a launch of
+the run is run again, three sessions at most; the sessions each profile
+took are printed before the kernel table line.
 
 ``--plan-only`` runs phases 0 and 3 (scale 1) alone and prints no result
 line: the way to time two trees in turns within one run on one card.
+The whole run builds ``cluster_b(scale=2)`` (host NumPy, tens of
+seconds) in a process of its own (``--build-cluster-b2``) while phases 0
+to 3 run, and stops it if a phase fails first.
 
 It imports only ``repro_torch``, the tests' planner carries
 (``tests/_select_rows_carries.py``, which import only ``repro_torch``),
-torch, NumPy and the standard library.
+``tools/step_op_count.py`` (which imports only ``repro_torch``), torch,
+NumPy and the standard library.
 """
 
 from __future__ import annotations
@@ -250,6 +287,14 @@ SLEEP_CYCLES = 200_000_000
 #: lost launch records (:func:`profiled`), and each measurement's count
 PROFILE_TRIES = 3
 PROFILE_LOG: list[dict] = []
+#: sleep-kernel launches that open every profile session
+#: (:func:`profile_session`): a session loses the records of its first
+#: launches (tens after many sessions in one process), and these take
+#: that loss instead of the run's
+LEAD_IN = 4096
+#: the sleep kernel as the profiler names it (at::cuda::sleep's)
+LEAD_IN_KERNEL = "spin_kernel"
+
 #: K1's fused kernel as the profiler names it
 K1_KERNEL = "select_rows_kernel"
 #: the committed reference records of cluster B's full convergence, by
@@ -257,8 +302,13 @@ K1_KERNEL = "select_rows_kernel"
 BENCH_ROWS = {1: "planner.tail.B1x.batch", 2: "planner.tail.B2x.batch"}
 
 
+#: when this module was imported: each phase line's ``at_s`` counts from it
+STARTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - STARTED}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -290,17 +340,38 @@ def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
 
 def kernel_rows(prof) -> dict[str, tuple[float, int]]:
     """Device milliseconds and recorded launches by kernel name in a
-    profile."""
+    profile: its device records summed by name, as ``key_averages()``
+    sums them, read from the raw trace (``key_averages()`` builds every
+    host event's tree first: seconds a session of 20,000 launches)."""
     rows: dict[str, tuple[float, int]] = {}
-    for ev in prof.key_averages():
-        if str(ev.device_type) != "DeviceType.CUDA":
-            continue                    # host-side rows; kernels below
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        ms, n = rows.get(ev.key, (0.0, 0))
-        rows[ev.key] = (ms + us / 1e3, n + ev.count)
+    for ev in prof.profiler.kineto_results.events():
+        if str(ev.device_type()) != "DeviceType.CUDA":
+            continue                    # host-side records; kernels below
+        ms, n = rows.get(ev.name(), (0.0, 0))
+        rows[ev.name()] = (ms + ev.duration_ns() / 1e6, n + 1)
     return rows
+
+
+def profile_session(run) -> tuple[dict[str, tuple[float, int]], float,
+                                  int]:
+    """One profiler session of ``run()`` (which ends in a synchronize),
+    opened by :data:`LEAD_IN` sleep-kernel launches: the run's
+    :func:`kernel_rows`, its wall seconds and the lead-in records the
+    session lost."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    rows = kernel_rows(prof)
+    lead = sum(n for k, (_, n) in rows.items() if LEAD_IN_KERNEL in k)
+    return ({k: v for k, v in rows.items() if LEAD_IN_KERNEL not in k},
+            wall, LEAD_IN - lead)
 
 
 def matching(rows: dict[str, tuple[float, int]], pattern: str
@@ -314,28 +385,26 @@ def matching(rows: dict[str, tuple[float, int]], pattern: str
 def profiled(run, missing, what: str
              ) -> tuple[dict[str, tuple[float, int]], float]:
     """:func:`kernel_rows` of a profile of ``run()`` (which ends in a
-    synchronize) and its wall seconds.  ``missing(rows)`` holds the
-    launches the profile recorded to the launches ``run()`` made and
-    says what is missing, or returns None.  On the H100 the profiler
-    drops the records of whole calls from some sessions, and of every
-    call from a few (PERF.md §6): a session that misses any launch is run
-    again, up to :data:`PROFILE_TRIES` sessions in all, and the run fails
-    if none holds every launch.  No number comes from a session that
-    lost records.  Each profile's sessions go to :data:`PROFILE_LOG`."""
-    from torch.profiler import ProfilerActivity, profile
+    synchronize) and its wall seconds (:func:`profile_session`).
+    ``missing(rows)`` holds the launches the profile recorded to the
+    launches ``run()`` made and says what is missing, or returns None.
+    A session that misses any launch is run again, up to
+    :data:`PROFILE_TRIES` sessions in all, and the run fails if none
+    holds every launch.  No number comes from a session that lost
+    records.  Each profile's sessions, and the lead-in records each
+    session lost, go to :data:`PROFILE_LOG`."""
+    lost = []
     for n in range(1, PROFILE_TRIES + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            wall = time.perf_counter() - t0
-        rows = kernel_rows(prof)
+        rows, wall, lead_lost = profile_session(run)
+        lost.append(lead_lost)
         gap = missing(rows)
         if gap is None:
-            PROFILE_LOG.append({"profile": what, "sessions": n})
+            PROFILE_LOG.append({"profile": what, "sessions": n,
+                                "lead_in_records_lost": lost})
             return rows, wall
         print(f"chip_smoke: profile session {n} of {what} lost launch "
-              f"records: {gap}", file=sys.stderr, flush=True)
+              f"records: {gap} (and {lead_lost} of its {LEAD_IN} lead-in "
+              f"records)", file=sys.stderr, flush=True)
     fail(f"{PROFILE_TRIES} profile sessions of {what} all lost launch "
          f"records; the last: {gap}")
 
@@ -542,10 +611,11 @@ def k1_instructions(build, ptx: subprocess.Popen) -> dict:
         fma = sum(op == "fma" for op, _ in ops)
         div = sum(op == "div" and ".rn" in mods for op, mods in ops)
         dfma = division_only_dfma(sass[name])
-        # select_rows_kernel<kStaged, kCached>
-        m = re.search(r"ILb([01])ELb([01])E", name)
+        # select_rows_kernel<kStaged, kCached, kLanes>
+        m = re.search(r"ILb([01])ELb([01])ELb([01])E", name)
         key = ("staged" if m.group(1) == "1" else "device_memory") \
-            + ("_cached" if m.group(2) == "1" else "")
+            + ("_cached" if m.group(2) == "1" else "") \
+            + ("_lanes" if m.group(3) == "1" else "")
         out[key] = {"ptx_f64_ops": len(ops), "ptx_fma_f64": fma,
                     "ptx_f64_without_rn": unrounded,
                     "ptx_div_rn_f64": div, **dfma, **ptxas.get(name, {})}
@@ -557,7 +627,8 @@ def k1_instructions(build, ptx: subprocess.Popen) -> dict:
               f"select_rows_kernel ({key}) SASS holds a DFMA outside its "
               f"divisions: {out[key]}")
     check(set(out) == {"staged", "device_memory", "staged_cached",
-                       "device_memory_cached"},
+                       "device_memory_cached", "staged_lanes",
+                       "device_memory_lanes"},
           f"K1's PTX lists select_rows_kernel as {sorted(out)}")
     return {"k1_select_rows_instructions": out}
 
@@ -911,40 +982,34 @@ def bench_row(name: str) -> dict:
 
 def profile_chunk(state, card: str, **options) -> dict:
     """Kernel time by name over the first chunk of a fresh cluster-B plan
-    (profiler on; its timings are read for shares, not reported as the
-    plan's speed); ``options`` go to the engine."""
-    from torch.profiler import ProfilerActivity, profile
+    (profiler on, :func:`profile_session`; its timings are read for
+    shares, not reported as the plan's speed); ``options`` go to the
+    engine."""
     from repro_torch.core.equilibrium_batch import BatchPlanner
     planner = BatchPlanner(state, device="cuda", **options)
     planner.sync()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = planner._step.run(planner.chunk)
+    out = []
+
+    def run():
+        out.append(planner._step.run(planner.chunk))
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    moves = int((out[:5 * planner.chunk].view(-1, 5)[:, 0] >= 0).sum())
-    rows = []
-    for ev in prof.key_averages():
-        if str(ev.device_type) != "DeviceType.CUDA":
-            continue                    # host-side rows; kernels below
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        rows.append((us, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
+
+    by_name, wall, lead_lost = profile_session(run)
+    moves = int((out[0][:5 * planner.chunk].view(-1, 5)[:, 0] >= 0).sum())
+    rows = sorted(((ms, key, n) for key, (ms, n) in by_name.items()),
+                  reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e3
     ops = sum(r[2] for r in rows)
-    k1 = [(us, n) for us, key, n in rows if K1_KERNEL in key]
+    k1 = [(ms, n) for ms, key, n in rows if K1_KERNEL in key]
     return {"card": card, "chunk_steps": planner.chunk, "moves": moves,
             "wall_s": wall, "device_busy_s": busy_s if rows else None,
             "idle_share": (1.0 - busy_s / wall) if rows else None,
             "device_ops": ops, "device_ops_per_step": ops / planner.chunk,
-            "k1_device_ms": sum(us for us, _ in k1) / 1e3,
+            "k1_device_ms": sum(ms for ms, _ in k1),
             "k1_calls_recorded": sum(n for _, n in k1),
-            "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
-                    for us, k, n in rows[:12]]}
+            "lead_in_records_lost": lead_lost,
+            "top": [{"name": k[:80], "device_ms": ms, "calls": n}
+                    for ms, k, n in rows[:12]]}
 
 
 def build_cluster_b(scale: int = 1) -> tuple:
@@ -953,6 +1018,44 @@ def build_cluster_b(scale: int = 1) -> tuple:
     t0 = time.perf_counter()
     base = cluster_b(scale=scale)
     return base, time.perf_counter() - t0
+
+
+#: where a process of its own leaves ``cluster_b(scale=2)`` as a pickled
+#: plain dict (a directory that ``.gitignore`` lists)
+CLUSTER_B2 = ROOT / "build" / "chip_smoke_cluster_b2.pkl"
+
+
+def start_cluster_b2() -> subprocess.Popen:
+    """Start building ``cluster_b(scale=2)`` (host NumPy, tens of
+    seconds) in a process of its own, beside the phases before it."""
+    CLUSTER_B2.parent.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [sys.executable, __file__, "--build-cluster-b2", str(CLUSTER_B2)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def build_cluster_b2_alone(path: str) -> int:
+    """``--build-cluster-b2``: pickle ``cluster_b(scale=2).to_plain()`` to
+    ``path``; prints the build's seconds."""
+    import pickle
+    base, secs = build_cluster_b(2)
+    Path(path).write_bytes(pickle.dumps(base.to_plain()))
+    print(json.dumps({"cluster_build_s": secs}), flush=True)
+    return 0
+
+
+def built_cluster_b2(proc: subprocess.Popen) -> tuple:
+    """The cluster :func:`start_cluster_b2` built (an exact copy: the
+    bytes as built) and the seconds its build took."""
+    import pickle
+    from repro_torch.core import ClusterState
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"cluster_b(scale=2)'s build failed: "
+                                f"{err[-2000:]}")
+    secs = json.loads(out.strip().splitlines()[-1])["cluster_build_s"]
+    base = ClusterState.from_plain(pickle.loads(CLUSTER_B2.read_bytes()))
+    CLUSTER_B2.unlink()
+    return base, secs
 
 
 def phase_full(card: str, scale: int = 1, built: tuple | None = None
@@ -1033,6 +1136,7 @@ def phase_full(card: str, scale: int = 1, built: tuple | None = None
         return out
     emit("cluster_b", **out)
     out["move_list"] = as_tuples(res.moves)       # phase dense_lanes' gate
+    out["stats"] = {k: st[k] for k in FLEET_STAT_KEYS}   # phase fleet's
     out["moves"] = res.moves                      # phase cluster_b_replay's
     prof = profile_chunk(base.copy(), card)
     emit("cluster_b_profile", **prof)
@@ -1900,14 +2004,15 @@ def fuzz_runs(timelines) -> dict:
     ``"equilibrium"`` class on the card (the harness's default device),
     the ``mgr`` and ``none`` baselines and the replay, every oracle a
     gate.  Counts what K1 must have launched: one ``select_rows`` a step
-    of the batch lane's chunks, one ``masked_select`` per source the
-    legacy lane evaluated (its fetches, ``dense.host_syncs``).  Each
-    lane's seconds are summed by engine (the replay's lane under its
-    reference engine's name)."""
+    of the batch lane's chunks and one a step of the fleet lane's (a
+    fleet of one: a bucket chunk is ``moves_per_tick`` steps), one
+    ``masked_select`` per source the legacy lane evaluated (its fetches,
+    ``dense.host_syncs``).  Each lane's seconds are summed by engine (the
+    replay's lane under its reference engine's name)."""
     from repro_torch import fuzz, obs
     from repro_torch.fuzz import harness
     reg = obs.registry()
-    moves = lanes = steps = 0
+    moves = lanes = steps = fleet_steps = 0
     sources = reg.get("dense.host_syncs")
     per = {}
     lane_s: Counter = Counter()
@@ -1922,7 +2027,7 @@ def fuzz_runs(timelines) -> dict:
 
     t0 = time.perf_counter()
     for label, tl in timelines:
-        snap = reg.snapshot("batch.chunks")
+        snap = reg.snapshot()
         t1 = time.perf_counter()
         harness.run_lane = timed_lane
         try:
@@ -1931,11 +2036,14 @@ def fuzz_runs(timelines) -> dict:
             fail(f"fuzz {label}: {e}")
         finally:
             harness.run_lane = run_lane
-        chunks = int(reg.deltas_since(snap).get("batch.chunks", 0))
-        steps += chunks * max(1, int(tl.sim["moves_per_tick"]))
-        check(got["equilibrium_batch"].rebuilds == 1,
-              f"fuzz {label}: the batch lane rebuilt "
-              f"{got['equilibrium_batch'].rebuilds} times")
+        d = reg.deltas_since(snap)
+        per_chunk = max(1, int(tl.sim["moves_per_tick"]))
+        steps += int(d.get("batch.chunks", 0)) * per_chunk
+        fleet_steps += int(d.get("fleet.chunks", 0)) * per_chunk
+        for engine in ("equilibrium_batch", "fleet"):
+            check(got[engine].rebuilds == 1,
+                  f"fuzz {label}: the {engine} lane rebuilt "
+                  f"{got[engine].rebuilds} times")
         moves += got["equilibrium"].planned_moves
         lanes += len(got) + 1                      # the replay's lane
         FUZZ_LANES[label] = {e: (got[e].moves, got[e].metrics_json)
@@ -1944,7 +2052,7 @@ def fuzz_runs(timelines) -> dict:
                       "moves": got["equilibrium"].planned_moves,
                       "seconds": time.perf_counter() - t1}
     return {"timelines": len(per), "lanes": lanes, "moves": moves,
-            "batch_steps": steps,
+            "batch_steps": steps, "fleet_steps": fleet_steps,
             "legacy_sources": int(reg.get("dense.host_syncs") - sources),
             "seconds": time.perf_counter() - t0,
             "lane_seconds": dict(sorted(lane_s.items())),
@@ -1977,13 +2085,20 @@ def phase_fuzz(card: str, base, life: dict) -> dict:
     for name, timelines in groups.items():
         select_move.reset_launch_count()
         runs[name] = fuzz_runs(timelines)
-        launches[name] = select_move.launch_counts()
-        want = {"select_rows": runs[name]["batch_steps"],
-                "masked_select": runs[name]["legacy_sources"]}
-        check(launches[name] == want and min(want.values()) > 0,
-              f"fuzz {name}: K1 launched {launches[name]}, the batch lanes "
-              f"ran {want['select_rows']} steps and the legacy lanes "
-              f"evaluated {want['masked_select']} sources")
+        got = select_move.launch_counts()
+        # the batch lanes' and the legacy lanes' launches by kernel, the
+        # fleet lanes' select_rows under a key of their own
+        launches[name] = {"select_rows": runs[name]["batch_steps"],
+                          "masked_select": runs[name]["legacy_sources"],
+                          "fleet_select_rows": runs[name]["fleet_steps"]}
+        check(got == {"select_rows": runs[name]["batch_steps"]
+                      + runs[name]["fleet_steps"],
+                      "masked_select": runs[name]["legacy_sources"]}
+              and min(launches[name].values()) > 0,
+              f"fuzz {name}: K1 launched {got}, the batch lanes ran "
+              f"{runs[name]['batch_steps']} steps, the fleet lanes "
+              f"{runs[name]['fleet_steps']} and the legacy lanes evaluated "
+              f"{runs[name]['legacy_sources']} sources")
     slack = runs["corpus"]["per_timeline"].get("legacy-slack-divergence")
     check(runs["corpus"]["timelines"] == 4 and slack is not None
           and "equilibrium_jax_legacy" in slack["lanes"],
@@ -2034,6 +2149,12 @@ def phase_fuzz(card: str, base, life: dict) -> dict:
                             if k.startswith("fuzz.lanes"))),
            "oracle_checks": checks, "oracle_failures": 0,
            "k1_launches": launches, "corpus": runs["corpus"],
+           "fleet_lane": {
+               "seconds": sum(r["lane_seconds"].get("fleet", 0.0)
+                              for r in runs.values()),
+               "select_rows_launches": {
+                   name: launches[name]["fleet_select_rows"]
+                   for name in runs}},
            "cluster_b": {
                "moves_replayed": lane.planned_moves, "ticks": cfg.ticks,
                "rebuilds": lane.rebuilds,
@@ -2512,6 +2633,459 @@ def phase_source_block(card: str, base) -> dict:
                              for name, v in secs.items()},
            "plan_s_turns": secs, "k1_launches": launches}
     emit("source_block", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase fleet: the fleet planner (repro_torch.fleet), K1 with a lane axis
+
+#: the cluster-B fleet: lanes, chunk and row block of its planner, the
+#: row capacity every lane is pinned to so that all share one bucket, and
+#: the growth of pool 0 that lane i takes first (i times this)
+FLEET_LANES = 8
+FLEET_CHUNK = 64
+FLEET_RB = 8
+FLEET_ROW_CAPACITY = 256
+FLEET_GROWTH_TIB = 10
+#: the paper fleet: the six clusters at their default seeds
+PAPER_FLEET = ("cluster_a", "cluster_b", "cluster_c", "cluster_d",
+               "cluster_e", "cluster_f")
+#: the certificate and histogram stats a fleet lane is held to
+FLEET_STAT_KEYS = ("bound_hits", "pruned_sources", "tail_moves",
+                   "sources_tried_hist")
+
+
+def fleet_states(plain: dict) -> list:
+    """The cluster-B fleet's lanes: exact copies of the cluster whose
+    ``to_plain()`` is ``plain``, lane i's pool 0 grown by i x
+    :data:`FLEET_GROWTH_TIB` TiB first (the lifecycle timeline's growth),
+    so that no two lanes plan alike."""
+    from repro_torch.core import ClusterState, TiB
+    lanes = []
+    for i in range(FLEET_LANES):
+        state = ClusterState.from_plain(plain)
+        if i:
+            state.grow_pool(0, i * FLEET_GROWTH_TIB * TiB)
+        lanes.append(state)
+    return lanes
+
+
+def new_fleet(states: dict, row_capacity=None):
+    """A fleet planner on the card with ``states`` (key: state) as its
+    lanes, each synced (built) and packed: (planner, set-up seconds)."""
+    from repro_torch.fleet import FleetPlanner
+    fp = FleetPlanner(chunk=FLEET_CHUNK, row_block=FLEET_RB, device="cuda")
+    t0 = time.perf_counter()
+    for key, state in states.items():
+        fp.add_cluster(key, state, row_capacity=row_capacity)
+    for key in states:
+        bp = fp._clusters[key]
+        bp.sync()
+        fp._pack.ensure(key, bp)
+    torch.cuda.synchronize()
+    return fp, time.perf_counter() - t0
+
+
+def fleet_converge(fp, **kw) -> tuple:
+    """Fleet ticks with every lane at its default budget until every lane
+    has converged: (the per-lane moves, the last tick's results, the
+    ticks, seconds)."""
+    moves = {key: [] for key in fp.clusters}
+    t0 = time.perf_counter()
+    for ticks in range(1, 11):
+        res = fp.plan_fleet(**kw)
+        for key, r in res.items():
+            moves[key] += as_tuples(r.moves)
+        if all(r.stats["converged"] for r in res.values()):
+            break
+    torch.cuda.synchronize()
+    return moves, res, ticks, time.perf_counter() - t0
+
+
+class restored:
+    """Runs a block on a bucket's stacked carry and puts the carry back
+    as it was (in place, so the step's K1 binding stays valid): a profile,
+    a sync check or an operation count of a live chunk that the plan
+    does not see."""
+
+    def __init__(self, bucket):
+        self.bucket = bucket
+
+    def __enter__(self):
+        self.saved = {k: v.clone() for k, v in self.bucket.dyn.items()}
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            self.bucket.dyn[k].copy_(v)
+
+
+def fleet_lane_k1(step, what: str, smem_limits=(None, 0)) -> tuple:
+    """K1's lane launch on a bucket's step as the plan gives it, bitwise
+    against the lane form of its plain version on the same inputs
+    (any, dst, cand_src, cand_row), staged and from device memory: (the
+    launches made, the largest |dst - plain dst| they gave)."""
+    from repro_torch.kernels import select_move
+    from repro_torch.kernels.ref import select_rows_lanes_ref
+    _, src_order, n_avail = step.sources()
+    want = select_rows_lanes_ref(src_order, n_avail, step.cap_lim, step.dyn,
+                                 step.const, step.scal, cand_row=True)
+    err = 0
+    for limit in smem_limits:
+        bound = select_move.SelectRows(step.cap_lim, step.dyn, step.const,
+                                       step.scal, smem_limit=limit,
+                                       lanes=True)
+        got = bound(src_order, n_avail, cand_row=True)
+        torch.cuda.synchronize()
+        err = max(err, int((got[1] - want[1]).abs().max()))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"select_rows with a lane axis differs from its plain lane "
+              f"form on {what} (smem_limit {limit})")
+    return len(smem_limits), err
+
+
+def fleet_k1_times(step, bp0, env: dict, max_abs_err: int) -> dict:
+    """K1's lane launch at the cluster-B fleet's first step (8 lanes):
+    kernel, plain and bound times, the bound counted from each lane's
+    carry as :func:`select_rows_work` counts it and summed; beside it the
+    one-carry launch of lane 0's serial planner at the same step, in
+    turns, three each; ``max_abs_err``: :func:`fleet_lane_k1`'s."""
+    from repro_torch.kernels import select_move
+    from repro_torch.kernels.ref import (lane_view, select_rows_lanes_ref,
+                                         select_rows_ref)
+    _, src_order, n_avail = step.sources()
+    lanes = select_move.SelectRows(step.cap_lim, step.dyn, step.const,
+                                   step.scal, lanes=True)
+    one = bp0._step
+    _, src1, avail1 = one.sources()
+    single = select_move.SelectRows(one.cap_lim, one.dyn, one.const,
+                                    one.scal)
+    turns = {"lanes_8": [], "lanes_1": []}
+    for _ in range(3):
+        for name, fn in (("lanes_8", lambda: lanes(src_order, n_avail)),
+                         ("lanes_1", lambda: single(src1, avail1))):
+            turns[name].append({"ms": time_cuda(fn),
+                                "device_ms": device_ms(fn, 50)})
+    med = {name: {key: float(np.median([t[key] for t in runs]))
+                  for key in ("ms", "device_ms")}
+           for name, runs in turns.items()}
+    ins = env["k1_select_rows_instructions"]["staged"]
+    div_ops = ins["dfma_per_division"][0] + 1
+    work = [select_rows_work((src_order[i], n_avail[i], step.cap_lim[i],
+                              lane_view(step.dyn, i),
+                              lane_view(step.const, i),
+                              lane_view(step.scal, i)), div_ops)
+            for i in range(step.B)]
+    f64 = sum(w["f64_ops"] for w in work)
+    ints = sum(w["int_ops"] for w in work)
+    nbytes = sum(w["bytes"] for w in work)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(f64 / F64_OPS_PER_S, ints / INT_OPS_PER_S) * 1e3
+    plain_ms = time_cuda(lambda: select_rows_lanes_ref(
+        src_order, n_avail, step.cap_lim, step.dyn, step.const, step.scal),
+        10, 1)
+    return {"at": "the cluster-B fleet's first step", "lanes": step.B,
+            "shape": {"k": step.k, "R": step.r_cap,
+                      "n": step.dev_iota.shape[0]},
+            "ms": med["lanes_8"]["ms"],
+            "device_ms": med["lanes_8"]["device_ms"],
+            "plain_ms": plain_ms, "library_ms": None,
+            "library_device_ms": None, "max_abs_err": max_abs_err,
+            "f64_ops": f64, "int_ops": ints, "bytes": nbytes,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "lanes_1_at_lane_0": med["lanes_1"],
+            "single_bound_ms": work[0]["bound_ms"], "turns": turns}
+
+
+def fleet_step_ops(step, bucket, steps: int = 8) -> dict:
+    """PyTorch operations a fleet step issues, untraced and traced,
+    counted as ``tools/step_op_count.py`` counts the batch step (its
+    ``OpCount``: non-view aten operations, K1's launch counted as one),
+    on the live bucket, whose carry is put back after each count."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from step_op_count import OpCount
+    from torch.utils._python_dispatch import _disable_current_modes
+    fused = step.select_rows
+
+    def one_launch(*args, **kwargs):
+        with _disable_current_modes():
+            return fused(*args, **kwargs)
+
+    mask = torch.ones(len(bucket), dtype=torch.bool, device="cuda")
+    out = {}
+    step.select_rows = one_launch
+    try:
+        for traced in (False, True):
+            with restored(bucket):
+                counter = OpCount()
+                with counter:
+                    step.run(steps, mask, traced)
+                torch.cuda.synchronize()
+            out["traced" if traced else "untraced"] = counter.n / steps + 1
+    finally:
+        step.select_rows = fused
+    return out
+
+
+def profile_fleet_chunk(step, bucket, card: str) -> dict:
+    """A profiled chunk of the live bucket (:func:`profiled`; its carry
+    put back after, so the plan does not see it): device operations a
+    step, busy seconds, idle share, K1's device time and the launches
+    the profile recorded, which must be the chunk's every step."""
+    mask = torch.ones(len(bucket), dtype=torch.bool, device="cuda")
+    m = FLEET_CHUNK
+
+    def run():
+        step.run(m, mask)
+        torch.cuda.synchronize()
+
+    # a session the profiler lost records of is run again on the carry
+    # the lost one left: the next chunk, as live
+    with restored(bucket):
+        rows, wall = profiled(
+            run, lambda rows: None if matching(rows, K1_KERNEL)[1] == m
+            else f"{matching(rows, K1_KERNEL)[1]} of {m} K1 launches",
+            "a cluster-B fleet chunk")
+    busy = sum(ms for ms, _ in rows.values()) / 1e3
+    ops = sum(n for _, n in rows.values())
+    k1_ms, k1_n = matching(rows, K1_KERNEL)
+    return {"card": card, "chunk_steps": m, "lanes": step.B, "wall_s": wall,
+            "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+            "device_ops": ops, "device_ops_per_step": ops / m,
+            "k1_device_ms": k1_ms, "k1_calls_recorded": k1_n}
+
+
+def check_fleet_run(what: str, reg, snap, launches: dict,
+                    fleet_moves: dict) -> dict:
+    """The counters of one fleet run: one round fetch a round, one
+    ``select_rows`` launch a bucket step (the sum over its chunks of
+    their steps), no ``masked_select``."""
+    d = reg.deltas_since(snap)
+    rounds, syncs = int(d.get("fleet.rounds", 0)), \
+        int(d.get("fleet.round_syncs", 0))
+    chunks = int(d.get("fleet.chunks", 0))
+    check(rounds > 0 and syncs == rounds,
+          f"{what}: {syncs} round fetches over {rounds} rounds")
+    check(launches == {"select_rows": chunks * FLEET_CHUNK,
+                       "masked_select": 0},
+          f"{what}: K1 launched {launches} over {chunks} bucket chunks of "
+          f"{FLEET_CHUNK} steps")
+    return {"rounds": rounds, "round_syncs": syncs, "chunks": chunks,
+            "overlapped_rounds": int(d.get("fleet.rounds.overlapped", 0)),
+            "rebuckets": int(d.get("fleet.rebuckets", 0)),
+            "k1_launches": launches["select_rows"],
+            "moves": {str(k): len(v) for k, v in fleet_moves.items()}}
+
+
+def serial_lane(state) -> tuple:
+    """A serial ``BatchPlanner`` configured like a fleet lane, on the
+    card, to convergence: (result, seconds)."""
+    from repro_torch.core.planner import create_planner
+    planner = create_planner("equilibrium_batch", chunk=FLEET_CHUNK,
+                             row_block=FLEET_RB, source_block=1,
+                             legality_cache=False, source_bounds=True,
+                             device="cuda")
+    t0 = time.perf_counter()
+    res = planner.plan(state)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def same_lane(what: str, moves: list, stats: dict, want_moves: list,
+              want_stats: dict) -> None:
+    """A fleet lane's moves and :data:`FLEET_STAT_KEYS` against its serial
+    planner's."""
+    pairs = {k: (stats[k], want_stats[k]) for k in FLEET_STAT_KEYS[:2]}
+    check(moves == want_moves
+          and all(stats[k] == want_stats[k] for k in FLEET_STAT_KEYS),
+          f"{what}: {len(moves)} fleet moves against {len(want_moves)} "
+          f"serial; (fleet, serial) {pairs}")
+
+
+def phase_fleet(card: str, base, full: dict, env: dict) -> dict:
+    """The fleet planner on the card.  K1's lane launch first, bitwise
+    against its plain lane form on the cluster-B fleet's first step and
+    on the first step of each bucket of the paper fleet (padded devices,
+    per-lane n_f), staged and from device memory.  Then the cluster-B
+    fleet (:func:`fleet_states`, one bucket) to convergence: every lane
+    equal to a serial planner configured like a lane on an exact copy
+    (lane 0's is phase 3's plan, whose planner is configured so), lane 0
+    also to ``planner.tail.B1x.batch``, one round
+    fetch a round, one ``select_rows`` launch a bucket step, no host sync
+    in a fleet chunk; its step's operations and a profiled chunk.  The 7
+    other serial plans, then the cluster-B fleet again, its first tick
+    cut by an SLO of 0.0 s (legal partial plans, then the uncut streams):
+    the fleet's seconds in turns with the serial plans'.  The paper fleet
+    (clusters A to F, B phase 3's) to convergence in co-scheduled rounds,
+    each lane equal to its serial planner (B's: phase 3's plan).  The
+    seconds each part took go out as ``part_s``."""
+    from repro_torch import obs
+    from repro_torch.core import ClusterState, clustergen
+    from repro_torch.kernels import select_move
+    reg = obs.registry()
+    bench = bench_row(BENCH_ROWS[1])
+    select_move.reset_launch_count()
+    t_phase = time.perf_counter()
+    part_s, t_part = {}, [t_phase]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+
+    # --- the cluster-B fleet, first turn: its first step's K1, the gates
+    plain = base.to_plain()
+    states = dict(enumerate(fleet_states(plain)))
+    fp, setup_s = new_fleet(states, FLEET_ROW_CAPACITY)
+    (shape, bucket), = fp._pack.buckets.items()
+    check(len(bucket.lanes()) == FLEET_LANES,
+          f"cluster-B fleet: {len(fp._pack.buckets)} buckets")
+    step = fp._step_of(bucket)
+    lap("cluster_b_fleet_setup")
+    k1_checks, k1_err = fleet_lane_k1(step, "the cluster-B fleet's first "
+                                            "step")
+    k1 = fleet_k1_times(step, fp._clusters[0], env, k1_err)
+    lap("k1")
+    ops = fleet_step_ops(step, bucket)
+    with restored(bucket):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = step.run(FLEET_CHUNK, torch.ones(
+                FLEET_LANES, dtype=torch.bool, device="cuda"))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        no_sync_moves = int((out[:, :5 * FLEET_CHUNK].view(
+            FLEET_LANES, -1, 5)[:, :, 0] >= 0).sum())
+    check(no_sync_moves > 0, "cluster-B fleet: the sync-checked chunk "
+                             "emitted no move")
+    lap("step_ops_and_no_sync")
+    prof = profile_fleet_chunk(step, bucket, card)
+    lap("profile")
+    select_move.reset_launch_count()
+    snap = reg.snapshot()
+    moves, res, ticks, plan_s = fleet_converge(fp)
+    run = check_fleet_run("cluster-B fleet", reg, snap,
+                          select_move.launch_counts(), moves)
+    lane0 = res[0].stats
+    hist = {int(k): v for k, v in lane0["sources_tried_hist"].items()}
+    check(moves[0] == full["move_list"] and len(moves[0])
+          == bench["converged"] and hist == bench["tried_hist"]
+          and lane0["bound_hits"] == bench["bound_hits"]
+          and lane0["pruned_sources"] == bench["pruned_sources"],
+          f"cluster-B fleet lane 0: {len(moves[0])} moves, bound_hits "
+          f"{lane0['bound_hits']}, pruned {lane0['pruned_sources']}")
+    check(len({len(m) for m in moves.values()}) > 1
+          or len({tuple(m[-1]) for m in moves.values()}) > 1,
+          "cluster-B fleet: the lanes planned alike")
+    # stats are per tick; one tick converged every lane
+    check(ticks == 1, f"cluster-B fleet: {ticks} ticks to convergence")
+    fleet_stats = {k: r.stats for k, r in res.items()}
+    same_lane("cluster-B fleet lane 0", moves[0], fleet_stats[0],
+              full["move_list"], full["stats"])
+    lap("cluster_b_fleet_plan")
+
+    # --- the serial plans of lanes 1 to 7 (the comparators; lane 0's is
+    # phase 3's plan), then the fleet again
+    serial_s = [full["plan_s"]]
+    for i, state in enumerate(fleet_states(plain)[1:], 1):
+        want, secs = serial_lane(state)
+        serial_s.append(secs)
+        same_lane(f"cluster-B fleet lane {i}", moves[i], fleet_stats[i],
+                  as_tuples(want.moves), want.stats)
+    lap("serial_plans")
+    # --- the fleet again, its first tick cut by an SLO of 0.0 s: legal
+    # partial plans, and on to convergence the uncut run's streams
+    states2 = dict(enumerate(fleet_states(plain)))
+    pre = dict(enumerate(fleet_states(plain)))
+    t0 = time.perf_counter()
+    fp2, setup2_s = new_fleet(states2, FLEET_ROW_CAPACITY)
+    t1 = time.perf_counter()
+    cut = fp2.plan_fleet(slo_seconds=0.0)
+    rest, _, _, _ = fleet_converge(fp2)
+    plan2_s = time.perf_counter() - t1
+    fleet2_s = time.perf_counter() - t0
+    replayed = 0
+    for key, r in cut.items():
+        check(r.stats["slo_expired"] and 0 < len(r.moves) < len(moves[key]),
+              f"SLO-cut tick, lane {key}: {len(r.moves)} moves, expired "
+              f"{r.stats['slo_expired']}")
+        for mv in r.moves:
+            check(pre[key].move_is_legal(mv.pg, mv.slot, mv.dst_osd),
+                  f"SLO-cut tick, lane {key}: illegal move {mv}")
+            pre[key].apply(mv)
+            replayed += 1
+    check(all(as_tuples(cut[k].moves) + rest[k] == moves[k] for k in moves),
+          "SLO-cut tick: the cut stream and its continuation differ from "
+          "the uncut run")
+    lap("slo_cut_fleet")
+
+    # --- the paper fleet: six clusters, several buckets
+    paper = {name: (ClusterState.from_plain(plain) if name == "cluster_b"
+                    else getattr(clustergen, name)())
+             for name in PAPER_FLEET}
+    # cluster B's serial plan is phase 3's
+    twins = {name: exact_copy(s) for name, s in paper.items()
+             if name != "cluster_b"}
+    lap("paper_clusters")
+    fpp, paper_setup_s = new_fleet(paper)
+    padded = 0
+    for shp, bkt in fpp._pack.buckets.items():
+        real = [bkt.dims[i].n_dev for i in bkt.lanes().values()]
+        padded += sum(n < shp.n_dev for n in real)
+        n_checks, err = fleet_lane_k1(fpp._step_of(bkt),
+                                      f"the paper fleet's bucket of {real} "
+                                      f"devices padded to {shp.n_dev}")
+        k1_checks += n_checks
+        k1["max_abs_err"] = max(k1["max_abs_err"], err)
+    check(padded > 0 and len(fpp._pack.buckets) > 1,
+          f"paper fleet: {len(fpp._pack.buckets)} buckets, {padded} "
+          f"padded lanes")
+    select_move.reset_launch_count()
+    snap = reg.snapshot()
+    pmoves, pres, pticks, paper_s = fleet_converge(fpp)
+    prun = check_fleet_run("paper fleet", reg, snap,
+                           select_move.launch_counts(), pmoves)
+    check(prun["overlapped_rounds"] > 0,
+          "paper fleet: no co-scheduled round")
+    check(pticks == 1, f"paper fleet: {pticks} ticks to convergence")
+    same_lane("paper fleet cluster_b", pmoves["cluster_b"],
+              pres["cluster_b"].stats, full["move_list"], full["stats"])
+    lap("paper_fleet_plan")
+    paper_serial_s = {"cluster_b": full["plan_s"]}
+    for name, state in twins.items():
+        want, paper_serial_s[name] = serial_lane(state)
+        same_lane(f"paper fleet {name}", pmoves[name], pres[name].stats,
+                  as_tuples(want.moves), want.stats)
+    lap("paper_serial_plans")
+
+    out = {"card": card,
+           "k1": {"lane_checks": k1_checks, **k1},
+           "cluster_b_fleet": {
+               "lanes": FLEET_LANES, "chunk": FLEET_CHUNK,
+               "row_capacity": FLEET_ROW_CAPACITY,
+               "bucket": dataclasses.asdict(shape),
+               **run, "ticks": ticks, "setup_s": setup_s, "plan_s": plan_s,
+               "seconds": setup_s + plan_s,
+               "second_run": {"setup_s": setup2_s, "plan_s": plan2_s,
+                              "seconds": fleet2_s,
+                              "first_tick_slo_seconds": 0.0},
+               "serial_seconds": serial_s,
+               "serial_seconds_sum": sum(serial_s),
+               "no_sync_chunk_moves": no_sync_moves,
+               "step_ops": ops, "profile": prof},
+           "slo_cut": {"moves_in_cut_tick": {str(k): len(r.moves)
+                                             for k, r in cut.items()},
+                       "replayed_legal": replayed},
+           "paper_fleet": {
+               "buckets": [{"n_dev": s.n_dev, "r_cap": s.r_cap,
+                            "lanes": sorted(b.lanes())}
+                           for s, b in fpp._pack.buckets.items()],
+               "padded_lanes": padded, **prun, "ticks": pticks,
+               "setup_s": paper_setup_s, "plan_s": paper_s,
+               "serial_seconds": paper_serial_s},
+           "part_s": part_s, "seconds": time.perf_counter() - t_phase}
+    emit("fleet", **out)
     return out
 
 
@@ -3264,6 +3838,9 @@ def main() -> int:
                     help="build the kernels and run only the cluster-B "
                          "phase (for timing two trees in one session); "
                          "prints no result line")
+    ap.add_argument("--build-cluster-b2", metavar="PATH",
+                    help="build cluster_b(scale=2) and pickle its plain "
+                         "dict to PATH (the whole run's own use)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3275,16 +3852,30 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if args.build_cluster_b2:
+        return build_cluster_b2_alone(args.build_cluster_b2)
+    if args.plan_only:
+        phase_full(phase_env()["card"])
+        return 0
+    b2 = start_cluster_b2()
+    try:
+        return run_all(b2)
+    finally:
+        if b2.poll() is None:               # a phase before it failed
+            b2.kill()
+            b2.wait()
+
+
+def run_all(b2: subprocess.Popen) -> int:
+    """Every phase in order, cluster B x2 from :func:`start_cluster_b2`'s
+    process; the kernel table line and the last line."""
     env = phase_env()
     card = env["card"]
-    if args.plan_only:
-        phase_full(card)
-        return 0
     built_b = build_cluster_b()
     k1 = phase_k1(card, built_b[0], env)
     phase_small()
     full = phase_full(card, built=built_b)
-    phase_full(card, scale=2)
+    phase_full(card, scale=2, built=built_cluster_b2(b2))
     phase_no_sync()
     warm = phase_warm(card, built_b[0])
     dense = phase_dense_lanes(card, built_b[0], full)
@@ -3302,6 +3893,7 @@ def main() -> int:
     # last, so that every earlier phase runs as it did before the opt-ins
     optins = phase_batch_optins(card, built_b[0], k1)
     blocks = phase_source_block(card, built_b[0])
+    fleet = phase_fleet(card, built_b[0], full, env)
     # the entry's launches and times are the tensor-core variant's at the
     # zamba2 prefill (N 64); its N 128 instantiation's at mamba2's shape
     # and the SIMT variant's there (float32, off both prefills) stand
@@ -3347,11 +3939,26 @@ def main() -> int:
                               k: sum(fz["k1_launches"][p][k]
                                      for p, _ in FUZZ_SWEEP)
                               for k in ("select_rows", "masked_select")},
-                          "fuzz corpus": fz["k1_launches"]["corpus"],
+                          "fuzz corpus": {
+                              k: fz["k1_launches"]["corpus"][k]
+                              for k in ("select_rows", "masked_select")},
+                          "fuzz sweep and corpus, fleet lane":
+                              fz["fleet_lane"]["select_rows_launches"],
                           "cluster B lifecycle under the fuzzer's oracles":
                               fz["cluster_b"]["k1_launches"],
                           "cluster B at source_block 3 and 25":
-                              blocks["k1_launches"]["select_rows"]},
+                              blocks["k1_launches"]["select_rows"],
+                          "cluster-B fleet (8 lanes)":
+                              fleet["cluster_b_fleet"]["k1_launches"],
+                          "paper fleet (A-F)":
+                              fleet["paper_fleet"]["k1_launches"]},
+        fleet_8_lanes={
+            "launches": fleet["cluster_b_fleet"]["k1_launches"],
+            **{k: fleet["k1"][k] for k in (
+                "at", "lanes", "shape", "max_abs_err", "ms", "device_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms")},
+            "lanes_1_at_lane_0": fleet["k1"]["lanes_1_at_lane_0"]},
         standalone_masked_select={
             "launches": legacy_b,
             "max_abs_err": dense["cluster_b"]["equilibrium_jax_legacy"][

@@ -50,9 +50,9 @@ of up to ``chunk`` moves:
 
   So moves, ``sources_tried``, ``bound_hits`` and ``pruned_sources`` are
   the reference's exactly at every kb, and the step has no
-  data-dependent loop (a later fleet port can add a leading lane axis to
-  every tensor).  At kb 1 a tile is one position's row block and the
-  same closed form takes fewer operations.
+  data-dependent loop: :mod:`repro_torch.fleet` runs its kb-1 form with
+  a leading lane axis on every tensor.  At kb 1 a tile is one position's
+  row block and the same closed form takes fewer operations.
 * **Moves apply as masked updates**: ``torch.where(ok, new, old)`` and
   indexed writes, in place on the carry, so a step that finds nothing
   (or runs after convergence) changes no value.
@@ -156,10 +156,13 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
 
 def _shift_remove(arr: torch.Tensor, pos: torch.Tensor, pad: int
                   ) -> torch.Tensor:
-    """Drop ``arr[pos]``, shift the tail left, pad the freed last slot."""
-    n = arr.shape[0]
+    """Along the last dim: drop the entry at ``pos``, shift the tail left,
+    pad the freed last slot.  ``pos`` broadcasts against ``arr`` (a 0-d
+    position, or one a lane with a trailing axis of 1 for the fleet's
+    stacked carries)."""
+    n = arr.shape[-1]
     idx = torch.arange(n, device=arr.device)
-    out = torch.where(idx >= pos, torch.roll(arr, -1), arr)
+    out = torch.where(idx >= pos, torch.roll(arr, -1, dims=-1), arr)
     # not ``out[n - 1] = pad``: writing a host scalar into a CUDA tensor
     # is a host-to-device copy that synchronises
     return torch.where(idx == n - 1, pad, out)
@@ -167,11 +170,13 @@ def _shift_remove(arr: torch.Tensor, pos: torch.Tensor, pad: int
 
 def _shift_insert(arr: torch.Tensor, pos: torch.Tensor,
                   value: torch.Tensor) -> torch.Tensor:
-    """Insert ``value`` at ``pos``, shifting the tail right (last drops)."""
-    n = arr.shape[0]
-    idx = torch.arange(n, device=arr.device)
+    """Along the last dim: insert ``value`` at ``pos``, shifting the tail
+    right (last drops); ``pos`` and ``value`` broadcast against ``arr``
+    as :func:`_shift_remove`'s ``pos``."""
+    idx = torch.arange(arr.shape[-1], device=arr.device)
     return torch.where(idx < pos, arr,
-                       torch.where(idx == pos, value, torch.roll(arr, 1)))
+                       torch.where(idx == pos, value,
+                                   torch.roll(arr, 1, dims=-1)))
 
 
 # ---------------------------------------------------------------------------

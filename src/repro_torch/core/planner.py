@@ -17,16 +17,18 @@ Registered here: ``equilibrium_faithful`` (the §3.1 loop, the port's host
 reference), ``equilibrium`` (the dense-NumPy lane, on the host: the
 planner every consumer calls), ``equilibrium_jax_legacy`` (the
 per-source lane through K1's standalone reduction), ``equilibrium_batch``
-(the device-resident engine), ``mgr`` and ``none``.  The legacy and
-batch lanes run on the CUDA card unless the caller passes
-``device="cpu"``.  The four Equilibrium planners share the
-``equilibrium`` equivalence tag: they emit bitwise-identical move
-streams.
+(the device-resident engine), ``mgr`` and ``none``; ``fleet``
+(:mod:`repro_torch.fleet.planner`, the lane-batched multi-cluster
+engine) registers when first looked up.  The legacy, batch and fleet
+lanes run on the CUDA card unless the caller passes ``device="cpu"``.
+The five Equilibrium planners share the ``equilibrium`` equivalence
+tag: they emit bitwise-identical move streams.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import inspect
 import time
 from dataclasses import dataclass, field
@@ -119,6 +121,14 @@ class PlannerSpec:
 
 _REGISTRY: dict[str, PlannerSpec] = {}
 
+#: planners whose defining module lives *above* repro_torch.core
+#: (importing it here eagerly would be a dependency cycle): resolved on
+#: first lookup by importing the named module, whose import-time
+#: ``@register_planner`` fills the registry slot.
+_LAZY_PLANNERS: dict[str, str] = {
+    "fleet": "repro_torch.fleet.planner",
+}
+
 
 def register_planner(name: str, *, sim_config_attr: str | None = None,
                      description: str = "", replace: bool = False,
@@ -136,6 +146,8 @@ def register_planner(name: str, *, sim_config_attr: str | None = None,
 
 
 def get_planner_spec(name: str) -> PlannerSpec:
+    if name not in _REGISTRY and name in _LAZY_PLANNERS:
+        importlib.import_module(_LAZY_PLANNERS[name])
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -144,12 +156,17 @@ def get_planner_spec(name: str) -> PlannerSpec:
 
 
 def available_planners() -> tuple[str, ...]:
-    """Registered planner names, sorted."""
-    return tuple(sorted(_REGISTRY))
+    """Registered planner names (lazy ones included), sorted."""
+    return tuple(sorted(_REGISTRY.keys() | _LAZY_PLANNERS.keys()))
 
 
 def planners_in_class(equivalence: str) -> tuple[str, ...]:
-    """Registered planner names tagged with ``equivalence``, sorted."""
+    """Registered planner names tagged with ``equivalence``, sorted; the
+    lazy planners' modules are imported first, so that their
+    registrations count."""
+    for name, module in _LAZY_PLANNERS.items():
+        if name not in _REGISTRY:
+            importlib.import_module(module)
     return tuple(sorted(n for n, spec in _REGISTRY.items()
                         if spec.equivalence == equivalence))
 

@@ -38,6 +38,16 @@
 // sources, s < n_avail), cand_src[s]: some row of s has a candidate, and
 // (where the caller passes it) cand_row[s, r]: row r of s has one.
 //
+// The lane axis (the fleet planner, repro_torch/fleet): one launch covers
+// ``lanes`` carries of one padded shape stacked on a leading axis, a grid
+// z-slice each (blockIdx.z is the lane), every pointer and per-lane
+// scalar (n_avail, us, usq, n_f, slack, min_dvar) moved on by the lane's
+// extent, and each lane's outputs written at its own offset.  A lane
+// reads nothing of another.  Two more instantiations (staged or not,
+// uncached) do that arithmetic; a one-lane launch takes the four without
+// it, whose instructions are those of the kernel before the lane axis.
+// The cached instantiation takes one lane only.
+//
 // The legality cache (the batch engine's opt-in): a second instantiation
 // takes cache_ok (k, R, n) candidate bytes and hit_blk (k, R / rb), one
 // flag per block of rb rows.  A warp whose row lies in a hit block reads
@@ -92,7 +102,11 @@ namespace cg = cooperative_groups;
 // select_rows_fields() gives the wrapper (kernels/select_move.py) both
 // come from it, and the wrapper fills each field by name.  Integer
 // tensors are int64, masks bool (one byte), the rest float64; every
-// tensor is contiguous; scalars are 1-element device tensors.
+// tensor is contiguous; scalars are 1-element device tensors.  With
+// ``lanes`` above 1 every tensor (the cache's aside) holds that many
+// carries stacked on a leading lane axis, each scalar one per lane, and
+// each pointer is lane 0's: a lane's data lies one lane's extent further
+// on (lane_args), which the sizes below give.
 #define SELECT_ROWS_FIELDS(X)                                               \
   X(const long long*, src_order)   /* (k,) the step's source order */       \
   X(const long long*, n_avail)     /* () sources not parked */              \
@@ -133,7 +147,11 @@ namespace cg = cooperative_groups;
   X(long long, n)                                                           \
   X(long long, S)                                                           \
   X(long long, L)                                                           \
-  X(long long, rb)                 /* rows a cache block (cache only) */
+  X(long long, rb)                 /* rows a cache block (cache only) */    \
+  X(long long, lanes)              /* carries stacked on a leading axis */  \
+  X(long long, n_pg)               /* acting's rows, */                     \
+  X(long long, P)                  /*   pools, */                           \
+  X(long long, n_sh)               /*   and shard rows a lane */
 
 struct SelectRowsArgs {
 #define SELECT_ROWS_FIELD(type, name) type name;
@@ -292,9 +310,62 @@ __host__ __device__ constexpr long long slot_bytes(long long S) {
   return kSelWarps * 2 * S * 4;
 }
 
+// The carry of lane z: every pointer moved on by z lanes' extents (z 0:
+// the arguments as given, so a one-lane launch reads the addresses a
+// launch without the lane axis reads).  The cache is never stacked: the
+// cached instantiation takes one lane (select_rows refuses more).
+__device__ __forceinline__ SelectRowsArgs lane_args(const SelectRowsArgs& a,
+                                                    long long z) {
+  SelectRowsArgs l = a;
+  const long long n = a.n, kR = a.k * a.R, Pn = a.P * a.n, sh = a.n_sh;
+  l.src_order += z * a.k;
+  l.n_avail += z;
+  l.rows_on += z * n * a.R;
+  l.acting += z * a.n_pg * a.S;
+  l.dst_ok += z * Pn;
+  l.pool_counts += z * Pn;
+  l.ideal += z * Pn;
+  l.used += z * n;
+  l.util += z * n;
+  l.cap += z * n;
+  l.cap_lim += z * n;
+  l.dev_class += z * n;
+  l.dev_in += z * n;
+  l.dev_domain += z * a.L * n;
+  l.sh_pg += z * sh;
+  l.sh_pool += z * sh;
+  l.sh_class += z * sh;
+  l.sh_level += z * sh;
+  l.sh_slot += z * sh;
+  l.sh_sbase += z * sh;
+  l.sh_scnt += z * sh;
+  l.sh_size += z * sh;
+  l.us += z;
+  l.usq += z;
+  l.n_f += z;
+  l.slack += z;
+  l.min_dvar += z;
+  l.any_out += z * kR;
+  l.dst_out += z * kR;
+  l.cand_src += z * a.k;
+  if (l.cand_row != nullptr) l.cand_row += z * kR;
+  return l;
+}
+
+// lane_args as a call of its own: in the device-memory instantiation the
+// inlined pointer arithmetic would be scheduled in among the first
+// block-wide division's DFMAs (phase 0 of chip_smoke.py checks that every
+// DFMA lies in its division); a call keeps it apart.  The staged
+// instantiation consumes the pointers in its staging loop and takes them
+// inline.
+__device__ __noinline__ SelectRowsArgs lane_args_apart(
+    const SelectRowsArgs& a, long long z) {
+  return lane_args(a, z);
+}
+
+// One block's work: the rows of source blockIdx.y of the carry in ``a``.
 template <bool kStaged, bool kCached>
-__global__ void __launch_bounds__(kSelThreads)
-select_rows_kernel(const SelectRowsArgs a) {
+__device__ __forceinline__ void select_rows_block(const SelectRowsArgs& a) {
   // int32 ids in shared memory, the carry's int64 ones in device memory
   using Id = typename std::conditional<kStaged, int, long long>::type;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -454,9 +525,25 @@ select_rows_kernel(const SelectRowsArgs a) {
   }
 }
 
+// kLanes: the carry holds ``lanes`` carries stacked on a lane axis, and
+// the grid's z-slice is the lane (lane_args); without it the arguments
+// are taken as they are, with no lane arithmetic at all.  The cached
+// instantiation is never stacked.
+template <bool kStaged, bool kCached, bool kLanes>
+__global__ void __launch_bounds__(kSelThreads)
+select_rows_kernel(const SelectRowsArgs a) {
+  static_assert(!(kCached && kLanes), "the legality cache takes one lane");
+  if constexpr (kLanes) {
+    select_rows_block<kStaged, kCached>(
+        kStaged ? lane_args(a, blockIdx.z) : lane_args_apart(a, blockIdx.z));
+  } else {
+    select_rows_block<kStaged, kCached>(a);
+  }
+}
+
 constexpr int kMaxDevices = 64;
 
-template <bool kStaged, bool kCached>
+template <bool kStaged, bool kCached, bool kLanes = false>
 int launch_select_rows(const SelectRowsArgs& a, long long smem,
                        cudaStream_t stream) {
   // the dynamic shared memory each device already allows the kernel: the
@@ -466,7 +553,7 @@ int launch_select_rows(const SelectRowsArgs& a, long long smem,
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices || smem > allowed[device].load()) {
-    err = cudaFuncSetAttribute(select_rows_kernel<kStaged, kCached>,
+    err = cudaFuncSetAttribute(select_rows_kernel<kStaged, kCached, kLanes>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -481,13 +568,15 @@ int launch_select_rows(const SelectRowsArgs& a, long long smem,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(width, static_cast<unsigned>(a.k), 1);
+  cfg.gridDim = dim3(width, static_cast<unsigned>(a.k),
+                     static_cast<unsigned>(a.lanes));
   cfg.blockDim = dim3(kSelThreads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, select_rows_kernel<kStaged, kCached>, a);
+  err = cudaLaunchKernelEx(&cfg, select_rows_kernel<kStaged, kCached, kLanes>,
+                           a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -520,18 +609,24 @@ const char* select_rows_fields() {
 
 long long select_rows_args_bytes() { return sizeof(SelectRowsArgs); }
 
-// One launch over the carry in ``a``; stages the device vectors in shared
-// memory when they fit in ``smem_limit`` bytes (a negative limit: the
-// most a block of the current device may opt in to), else reads them
-// from device memory.  A non-null cache_ok takes the cached
-// instantiation, which needs hit_blk, cache_out and rb dividing R.
-// k < 65536, R >= 1.
+// One launch over the carry in ``a``: its ``lanes`` carries, one grid
+// z-slice each; stages the device vectors in shared memory when they fit
+// in ``smem_limit`` bytes (a negative limit: the most a block of the
+// current device may opt in to), else reads them from device memory.  A
+// non-null cache_ok takes the cached instantiation, which needs hit_blk,
+// cache_out and rb dividing R, and one lane (cudaErrorNotSupported
+// otherwise).  k < 65536, R >= 1, 1 <= lanes < 65536, and the stacked
+// outputs (R k lanes entries) indexable in int32.
 int select_rows(const SelectRowsArgs* a, long long smem_limit, void* stream) {
   if (a->k <= 0) return 0;
   if (a->R <= 0 || a->k > 65535 || a->n <= 0 || a->n >= INT32_MAX ||
-      a->R * a->k >= INT32_MAX)
+      a->lanes < 1 || a->lanes > 65535 || a->n_pg < 0 || a->P < 0 ||
+      a->n_sh < 0 || a->R * a->k >= INT32_MAX ||
+      a->R * a->k * a->lanes >= INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool cached = a->cache_ok != nullptr;
+  if (cached && a->lanes != 1)
+    return static_cast<int>(cudaErrorNotSupported);
   if (cached && (a->hit_blk == nullptr || a->cache_out == nullptr ||
                  a->rb <= 0 || a->R % a->rb != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -548,10 +643,13 @@ int select_rows(const SelectRowsArgs* a, long long smem_limit, void* stream) {
   const long long staged = staged_bytes(a->n, a->L) + slot_bytes(a->S);
   const long long static_bytes = sizeof(int) * kMaxCluster;  // block_flags
   if (staged + static_bytes <= smem_limit)
-    return cached ? launch_select_rows<true, true>(*a, staged, s)
-                  : launch_select_rows<true, false>(*a, staged, s);
-  return cached ? launch_select_rows<false, true>(*a, slot_bytes(a->S), s)
-                : launch_select_rows<false, false>(*a, slot_bytes(a->S), s);
+    return a->lanes > 1 ? launch_select_rows<true, false, true>(*a, staged, s)
+           : cached     ? launch_select_rows<true, true>(*a, staged, s)
+                        : launch_select_rows<true, false>(*a, staged, s);
+  const long long slots = slot_bytes(a->S);
+  return a->lanes > 1 ? launch_select_rows<false, false, true>(*a, slots, s)
+         : cached     ? launch_select_rows<false, true>(*a, slots, s)
+                      : launch_select_rows<false, false>(*a, slots, s);
 }
 
 }  // extern "C"

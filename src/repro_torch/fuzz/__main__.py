@@ -43,9 +43,9 @@ import torch
 
 HOST_ENGINES = ("equilibrium", "equilibrium_faithful")
 
-#: the lane whose selection runs in ``select_rows`` on a CUDA device,
+#: the lanes whose selection runs in ``select_rows`` on a CUDA device,
 #: out of reach of a legality mutation
-KERNEL_LANE = "equilibrium_batch"
+KERNEL_LANES = ("equilibrium_batch", "fleet")
 
 
 def parse_seeds(spec: str) -> range:
@@ -63,20 +63,21 @@ def resolve_engines(spec: str):
 
 
 def check_mutation_lanes(engines, device) -> None:
-    """Refuse a mutation run whose lanes include the batch engine on a
-    CUDA device (``None`` is the card): ``select_rows`` evaluates every
-    criterion inside the kernel, so the mutation would not reach it and
-    the run would report a healthy kernel as an ``agreement`` failure."""
+    """Refuse a mutation run whose lanes include the batch engine or the
+    fleet on a CUDA device (``None`` is the card): ``select_rows``
+    evaluates every criterion inside the kernel, so the mutation would
+    not reach it and the run would report a healthy kernel as an
+    ``agreement`` failure."""
     dev = torch.device("cuda") if device is None else torch.device(device)
-    if dev.type == "cuda" and KERNEL_LANE in engines:
+    lane = next((e for e in engines if e in KERNEL_LANES), None)
+    if dev.type == "cuda" and lane is not None:
         raise ValueError(
-            f"--mutate cannot run the {KERNEL_LANE} lane on {dev}: its "
+            f"--mutate cannot run the {lane} lane on {dev}: its "
             f"selection kernel select_rows compiles every legality "
             f"criterion into the kernel, where a mutation of "
             f"repro_torch.core.legality does not reach, so the lane would "
             f"plan healthily and the run would report the kernel as an "
-            f"agreement failure; use --engines class or host, or "
-            f"--device cpu")
+            f"agreement failure; use --engines host, or --device cpu")
 
 
 def run_one(tl, engines, device, baselines=True):
@@ -148,7 +149,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--mutate", metavar="NAME",
                     help="mutation smoke: run under a broken legality "
                          "predicate and require the harness to catch it "
-                         "(not with the equilibrium_batch lane on CUDA)")
+                         "(not with the equilibrium_batch or fleet lane "
+                         "on CUDA)")
     ap.add_argument("--expect-max-events", type=int, default=12,
                     help="mutation smoke: max events in the shrunk "
                          "reproducer")

@@ -12,9 +12,9 @@ byte-identical metrics JSON), bounds warm-engine rebuilds, and replays
 the serialized timeline to prove seed ⇒ bytes.
 
 ``device`` reaches the lanes that run on one (``equilibrium_batch``,
-``equilibrium_jax_legacy``): ``None`` is the CUDA card, and those lanes
-raise without one; ``"cpu"`` runs them on their kernels' plain versions.
-The host lanes ignore it.
+``equilibrium_jax_legacy``, ``fleet``): ``None`` is the CUDA card, and
+those lanes raise without one; ``"cpu"`` runs them on their kernels'
+plain versions.  The host lanes ignore it.
 """
 
 from __future__ import annotations

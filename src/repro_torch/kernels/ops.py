@@ -8,7 +8,8 @@ failed build or launch.
 
 * K1 :func:`select_rows` — the batched planner step's selection, every
   criterion and the reduction in one launch (:func:`bind_select_rows`
-  binds it to a carry once) — and :func:`masked_select`,
+  binds it to a carry once, or to a bucket of stacked carries) — and
+  :func:`masked_select`,
   the reduction alone over a legality mask;
 * K2 :func:`flash_attention` — attention forward (model layout);
 * K3 :func:`ssd_scan` — the Mamba-2 SSD chunked scan (model layout).
@@ -19,8 +20,8 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import flash_attention_fwd
-from .ref import (flash_attention_online, masked_select_ref, select_rows_ref,
-                  ssd_chunked)
+from .ref import (flash_attention_online, masked_select_ref,
+                  select_rows_lanes_ref, select_rows_ref, ssd_chunked)
 from .select_move import SelectRows, masked_select_fwd
 from .ssd_scan import ssd_scan_fwd
 
@@ -42,16 +43,21 @@ def masked_select(valid: torch.Tensor, util: torch.Tensor
 
 
 def bind_select_rows(cap_lim: torch.Tensor, dyn: dict, const: dict,
-                     scal: dict):
+                     scal: dict, lanes: bool = False):
     """The batched planner step's selection bound to its carry: a
     callable ``(src_order, n_avail, **cache) → (any, dst, cand_src[,
     cand_row])`` (see :func:`select_rows`).  On a carry on the CPU it runs
     the plain version, on one on a card it launches the kernel
-    (:class:`.select_move.SelectRows`, which checks the carry once)."""
+    (:class:`.select_move.SelectRows`, which checks the carry once).
+    ``lanes=True``: the carry's tensors are stacked on a leading lane
+    axis (the fleet's bucket), one launch selects for every lane, and
+    each output carries the lane axis (plain version
+    :func:`.ref.select_rows_lanes_ref`)."""
     if _on_cpu(cap_lim, dyn["util"]):
-        return lambda src_order, n_avail, **cache: select_rows_ref(
+        plain = select_rows_lanes_ref if lanes else select_rows_ref
+        return lambda src_order, n_avail, **cache: plain(
             src_order, n_avail, cap_lim, dyn, const, scal, **cache)
-    return SelectRows(cap_lim, dyn, const, scal)
+    return SelectRows(cap_lim, dyn, const, scal, lanes=lanes)
 
 
 def select_rows(src_order: torch.Tensor, n_avail: torch.Tensor,

@@ -2,7 +2,7 @@
 
 What :mod:`.ops` runs on CPU tensors: K1 ``select_rows_ref`` (the
 planner step's selection over ``select_rows_masks``, ending in
-``masked_select_ref``) and
+``masked_select_ref``), its lane form ``select_rows_lanes_ref`` and
 ``masked_select_ref``, K2 ``flash_attention_online`` (online softmax over KV blocks) and K3
 ``ssd_chunked`` (the chunk loop), the same schedules as the reference
 model's own code.
@@ -190,6 +190,30 @@ def select_rows_ref(src_order: torch.Tensor, n_avail: torch.Tensor,
     per_row = m["cand"].any(dim=2)
     out = (any_row, dst, per_row.any(dim=1))
     return (*out, per_row) if cand_row else out
+
+
+def lane_view(d: dict, lane: int) -> dict:
+    """Lane ``lane`` of a carry dict stacked on a leading lane axis: each
+    tensor's slice, a view."""
+    return {key: t[lane] for key, t in d.items()}
+
+
+def select_rows_lanes_ref(src_order: torch.Tensor, n_avail: torch.Tensor,
+                          cap_lim: torch.Tensor, dyn: dict, const: dict,
+                          scal: dict, *, cand_row: bool = False
+                          ) -> tuple[torch.Tensor, ...]:
+    """:func:`select_rows_ref` on carries of one shape stacked on a
+    leading lane axis (the fleet planner's bucket), plain version of K1's
+    lane launch.  Every tensor of ``dyn``, ``const``, ``scal`` and
+    ``cap_lim`` carries the lanes first (a scalar one per lane),
+    ``src_order`` is (lanes, k) and ``n_avail`` (lanes,); each output is
+    :func:`select_rows_ref`'s with the leading lane axis.  A loop over
+    the lanes, each on its own views, so no lane reads another's data."""
+    outs = [select_rows_ref(src_order[b], n_avail[b], cap_lim[b],
+                            lane_view(dyn, b), lane_view(const, b),
+                            lane_view(scal, b), cand_row=cand_row)
+            for b in range(src_order.shape[0])]
+    return tuple(torch.stack(col) for col in zip(*outs))
 
 
 NEG_INF = -1e30

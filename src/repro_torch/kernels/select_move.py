@@ -137,7 +137,19 @@ _CARRY = {"rows_on": ("dyn", torch.int64), "acting": ("dyn", torch.int64),
 _STEP = ("src_order", "n_avail")         # the step's own, set per launch
 _CACHE = ("cache_ok", "hit_blk", "cache_out")   # per launch, or null
 _OUT = ("any_out", "dst_out", "cand_src", "cand_row")
-_SIZES = ("k", "R", "n", "S", "L", "rb")
+_SIZES = ("k", "R", "n", "S", "L", "rb", "lanes", "n_pg", "P", "n_sh")
+#: the per-lane extent of each tensor of a carry stacked on a lane axis
+#: (after the leading lane axis), in the sizes' names
+_LANE_SHAPES = {"rows_on": ("n", "R"), "acting": ("n_pg", "S"),
+                "dst_ok": ("P", "n"), "pool_counts": ("P", "n"),
+                "ideal": ("P", "n"), "dev_domain": ("L", "n"),
+                "us": (1,), "usq": (1,), "n_f": (), "slack": (),
+                "min_dvar": (),
+                **{key: ("n",) for key in ("used", "util", "cap", "cap_lim",
+                                           "dev_class", "dev_in")},
+                **{f"sh_{f}": ("n_sh",) for f in (
+                    "pg", "pool", "class", "level", "slot", "sbase", "scnt",
+                    "size")}}
 _args_type = None
 
 
@@ -190,14 +202,19 @@ class SelectRows:
     a call that finds a tensor of it replaced (a re-pad) checks and packs
     the carry again.  ``smem_limit``: the bytes of shared memory a block
     may stage the device vectors in (None: the device's own limit; 0
-    reads them from device memory).  Raises on anything the kernel cannot
+    reads them from device memory).  ``lanes=True``: every tensor of the
+    carry holds carries of one shape stacked on a leading lane axis (the
+    fleet's bucket), each scalar one per lane, and one launch selects for
+    every lane (no legality cache).  Raises on anything the kernel cannot
     take and never falls back to the plain version."""
 
     def __init__(self, cap_lim: torch.Tensor, dyn: dict, const: dict,
-                 scal: dict, smem_limit: int | None = None):
+                 scal: dict, smem_limit: int | None = None,
+                 lanes: bool = False):
         self._dicts = {None: {"cap_lim": cap_lim}, "dyn": dyn,
                        "const": const, "scal": scal}
         self._smem_limit = -1 if smem_limit is None else smem_limit
+        self._stacked = lanes
         self._bind()
 
     def _carry(self) -> list[torch.Tensor]:
@@ -209,6 +226,9 @@ class SelectRows:
         for key, t in zip(_CARRY, held):
             _on_card(key, t, _CARRY[key][1], dev)
         t = dict(zip(_CARRY, held))
+        if self._stacked:
+            self._bind_lanes(t)
+            return
         n, R = t["used"].shape[0], t["rows_on"].shape[1]
         S, L = t["acting"].shape[1], t["dev_domain"].shape[0]
         # every per-device axis is n long (rows_on's first, the others'
@@ -223,9 +243,38 @@ class SelectRows:
                              f"{tuple(t['rows_on'].shape)}, n {n}, not n "
                              f"wide: {per_device}")
         self._fn, args_type = _select_rows_kernel()
-        self._held, self._dev, self._R = held, dev, R
+        self._held, self._dev, self._R, self._lanes = held, dev, R, None
         self._args = args_type(**{key: v.data_ptr() for key, v in t.items()},
-                               R=R, n=n, S=S, L=L)
+                               R=R, n=n, S=S, L=L, lanes=1,
+                               n_pg=t["acting"].shape[0],
+                               P=t["dst_ok"].shape[0],
+                               n_sh=t["sh_size"].shape[0])
+
+    def _bind_lanes(self, t: dict) -> None:
+        """A carry stacked on a lane axis: every tensor's shape must be
+        the lanes and one lane's extent (:data:`_LANE_SHAPES`), since the
+        kernel finds a lane's data from these sizes alone."""
+        def size(key: str, axis: int) -> int:
+            shape = t[key].shape
+            return shape[axis] if len(shape) > abs(axis) else 0
+
+        B = size("used", 0)
+        sizes = {"n": size("used", -1), "R": size("rows_on", -1),
+                 "S": size("acting", -1), "L": size("dev_domain", 1),
+                 "n_pg": size("acting", 1), "P": size("dst_ok", 1),
+                 "n_sh": size("sh_size", -1)}
+        bad = {key: tuple(v.shape) for key, v in t.items()
+               if tuple(v.shape) != (B, *(d if isinstance(d, int)
+                                          else sizes[d]
+                                          for d in _LANE_SHAPES[key]))}
+        if bad or not 1 <= B < 2 ** 16 or sizes["R"] < 1:
+            raise ValueError(f"select_rows: bad shapes for {B} stacked "
+                             f"lanes: {bad}")
+        self._fn, args_type = _select_rows_kernel()
+        self._held, self._dev = list(t.values()), t["used"].device
+        self._R, self._lanes = sizes["R"], B
+        self._args = args_type(**{key: v.data_ptr() for key, v in t.items()},
+                               lanes=B, **sizes)
 
     def _cache(self, k: int, cache_ok, hit_blk, rb, cache_out) -> int:
         """Check a legality cache for a launch on k sources; returns
@@ -254,9 +303,15 @@ class SelectRows:
         and with ``cand_row`` cand_row (k, R) bool): the outputs of
         :func:`repro_torch.kernels.ref.select_rows_ref` on the same
         arguments.  A ``cache_ok`` launches the cached instantiation; a
-        malformed cache raises."""
+        malformed cache raises.  Bound to stacked lanes: ``src_order``
+        (lanes, k), ``n_avail`` (lanes,), each output with the leading
+        lane axis (:func:`repro_torch.kernels.ref.select_rows_lanes_ref`),
+        and no cache."""
         if any(a is not b for a, b in zip(self._carry(), self._held)):
             self._bind()
+        if self._lanes is not None:
+            return self._call_lanes(src_order, n_avail, cache_ok, hit_blk,
+                                    cache_out, cand_row)
         dev = self._dev
         _on_card("src_order", src_order, torch.int64, dev)
         _on_card("n_avail", n_avail, torch.int64, dev)
@@ -287,16 +342,52 @@ class SelectRows:
         a.hit_blk = hit_blk.data_ptr() if cached else None
         a.cache_out = cache_out.data_ptr() if cached else None
         a.rb = rb if cached else 0
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = self._fn(ctypes.byref(a), self._smem_limit, stream)
+        self._launch()
+        if cached:
+            global _cached_launches
+            _cached_launches += 1
+        out = (any_out, dst_out, cand_src)
+        return (*out, rows) if cand_row else out
+
+    def _launch(self) -> None:
+        with torch.cuda.device(self._dev):
+            stream = torch.cuda.current_stream(self._dev).cuda_stream
+            rc = self._fn(ctypes.byref(self._args), self._smem_limit, stream)
         if rc != 0:
             raise RuntimeError(f"select_rows kernel launch failed: CUDA "
                                f"error {rc}")
         _launches["select_rows"] += 1
-        if cached:
-            global _cached_launches
-            _cached_launches += 1
+
+    def _call_lanes(self, src_order, n_avail, cache_ok, hit_blk, cache_out,
+                    cand_row: bool) -> tuple[torch.Tensor, ...]:
+        """One launch for every stacked lane (the cached instantiation
+        takes one carry, never stacked lanes: a cache raises)."""
+        if cache_ok is not None or hit_blk is not None \
+                or cache_out is not None:
+            raise ValueError("select_rows: stacked lanes take no legality "
+                             "cache")
+        dev, B, R = self._dev, self._lanes, self._R
+        _on_card("src_order", src_order, torch.int64, dev)
+        _on_card("n_avail", n_avail, torch.int64, dev)
+        k = src_order.shape[-1]
+        if src_order.shape != (B, k) or n_avail.shape != (B,) \
+                or k >= 2 ** 16 or B * k * R >= 2 ** 31:
+            raise ValueError(f"select_rows: bad shapes for {B} stacked "
+                             f"lanes: src_order {tuple(src_order.shape)}, "
+                             f"n_avail {tuple(n_avail.shape)}, R {R}")
+        any_out = torch.empty((B, k * R), dtype=torch.bool, device=dev)
+        dst_out = torch.empty((B, k * R), dtype=torch.int32, device=dev)
+        cand_src = torch.empty((B, k), dtype=torch.bool, device=dev)
+        rows = (torch.empty((B, k, R), dtype=torch.bool, device=dev)
+                if cand_row else None)
+        a = self._args
+        a.src_order, a.n_avail = src_order.data_ptr(), n_avail.data_ptr()
+        a.any_out, a.dst_out = any_out.data_ptr(), dst_out.data_ptr()
+        a.cand_src, a.k = cand_src.data_ptr(), k
+        a.cand_row = rows.data_ptr() if cand_row else None
+        a.cache_ok = a.hit_blk = a.cache_out = None
+        a.rb = 0
+        self._launch()
         out = (any_out, dst_out, cand_src)
         return (*out, rows) if cand_row else out
 
@@ -323,16 +414,18 @@ def compact_parked(order_k: torch.Tensor, parked: torch.Tensor
     ``parked`` mask: unparked ranks first (fullest-first order
     preserved), parked ranks at the back.
 
-    order_k: (k,) device indices, fullest first.  parked: (k,) bool, one
-    flag per *rank*.  Returns (compacted (k,) order, 0-dim int64 count
-    of unparked ranks).  Each rank's destination slot comes from two
-    running counts (no sort, no host sync), and one scatter places it.
+    order_k: (..., k) device indices, fullest first, along the last axis
+    (the fleet stacks lanes before it).  parked: the same shape, one flag
+    per *rank*.  Returns (compacted order, int64 count of unparked ranks
+    with the last axis dropped: 0-dim for one order).  Each rank's
+    destination slot comes from two running counts (no sort, no host
+    sync), and one scatter places it.
     """
     keep = ~parked
-    n_keep = keep.sum()
-    slot = torch.where(keep, torch.cumsum(keep, 0) - 1,
-                       n_keep + torch.cumsum(parked, 0) - 1)
-    out = torch.empty_like(order_k).scatter_(0, slot, order_k)
+    n_keep = keep.sum(dim=-1)
+    slot = torch.where(keep, torch.cumsum(keep, -1) - 1,
+                       n_keep[..., None] + torch.cumsum(parked, -1) - 1)
+    out = torch.empty_like(order_k).scatter_(-1, slot, order_k)
     return out, n_keep
 
 

@@ -116,9 +116,10 @@ class ScenarioEngine:
         warm planners stay warm across arbitrary timelines regardless of
         chunk geometry.)  Unaccepted kwargs are dropped by
         :func:`~repro_torch.core.planner.create_planner`, so ``device``
-        reaches only the planners that run on one (``equilibrium_batch``
-        and ``equilibrium_jax_legacy``): ``None`` is the CUDA card, and
-        they raise without one.  ``options`` go to the planner too.
+        reaches only the planners that run on one (``equilibrium_batch``,
+        ``equilibrium_jax_legacy`` and ``fleet``): ``None`` is the CUDA
+        card, and they raise without one.  ``options`` go to the planner
+        too.
         """
         spec = get_planner_spec(cfg.balancer)    # ValueError when unknown
         kwargs = {"chunk": max(1, cfg.moves_per_tick), "device": device,
@@ -137,10 +138,10 @@ class ScenarioEngine:
     def step(self, t: int) -> None:
         """One lifecycle tick: events (including inline planning), then
         the transfer/metrics bookkeeping.  The tick is split so callers
-        that plan *between* the phases — the reference's fleet load
-        generator (:mod:`repro.fleet.loadgen`) batches every engine's
-        rebalance request into one vmapped fleet tick — reuse the exact
-        event and bookkeeping semantics."""
+        that plan *between* the phases — the fleet load generator
+        (:mod:`repro_torch.fleet.loadgen`) batches every engine's
+        rebalance request into one fleet tick — reuse the exact event and
+        bookkeeping semantics."""
         # one span per lifecycle tick: the nested planner.plan span
         # carries the plan wall time; moved bytes and the throttle
         # backlog land here

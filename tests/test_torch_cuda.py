@@ -28,7 +28,11 @@ writes; a malformed cache raises.  The batch engine with the cache on,
 pipelined or not, gives the CPU run's moves and counters under a tracer.
 The batch engine's
 warm continuation after each delta type equals a cold plan on the card,
-with ``select_rows`` launched once a step.  The dense legacy lane on the
+with ``select_rows`` launched once a step.  K1's lane launch (the fleet's
+one launch a bucket step) equals the lane form of its plain version,
+staged and from device memory, a one-lane launch the launch without the
+lane axis, and a cached launch of stacked lanes raises; the fleet on the
+card equals serial planners on the card lane by lane.  The dense legacy lane on the
 card equals the faithful planner, with the standalone ``masked_select``
 launched once per evaluated source."""
 
@@ -717,7 +721,7 @@ def test_fuzz_timeline_on_card_passes_every_oracle(card):
     launches = select_move.launch_counts()
     assert set(lanes) == {"equilibrium", "equilibrium_batch",
                           "equilibrium_faithful", "equilibrium_jax_legacy",
-                          "mgr", "none"}
+                          "fleet", "mgr", "none"}
     assert lanes["equilibrium"].planned_moves > 0
     assert lanes["equilibrium_batch"].rebuilds == 1
     assert launches["select_rows"] > 0 and launches["masked_select"] > 0
@@ -753,3 +757,142 @@ def test_fuzz_mutation_does_not_reach_the_card_kernel(card):
             fuzz.run_lane(tl, "equilibrium")
     assert on_card.moves == healthy.moves
     assert on_card.metrics_json == healthy.metrics_json
+
+
+# ---------------------------------------------------------------------------
+# K1 with a lane axis: the fleet's one launch a bucket
+
+
+def _card_bucket(card, sizes=((9, 0), (12, 1), (16, 2))):
+    """A fleet on the card of lanes of distinct sizes in one bucket (the
+    9- and 12-device lanes padded to 16, their ``k_eff`` below the
+    bucket's k), planned one tick, and the bucket's step."""
+    from repro_torch.core.clustergen import sim_cluster
+    from repro_torch.fleet import FleetPlanner
+    fp = FleetPlanner(chunk=8, row_block=8, device=card)
+    for j, (n, seed) in enumerate(sizes):
+        fp.add_cluster(f"c{j}", sim_cluster(seed=seed, n_hdd=n, n_ssd=0,
+                                            fill=0.6))
+    fp.plan_fleet({f"c{j}": 8 for j in range(len(sizes))})
+    (bucket,) = fp._pack.buckets.values()
+    return fp, bucket, fp._step_of(bucket)
+
+
+@pytest.mark.parametrize("smem_limit", [None, 0], ids=["staged", "device"])
+def test_k1_lane_launch_matches_plain_lane_form(card, smem_limit):
+    """One launch for three stacked lanes (padded devices, per-lane
+    ``n_f`` and ``k_eff``) equals the lane form of the plain version on
+    the same inputs, bitwise, staged and from device memory."""
+    from repro_torch.kernels.ref import select_rows_lanes_ref
+    _, bucket, step = _card_bucket(card)
+    _, src_order, n_avail = step.sources()
+    bound = select_move.SelectRows(step.cap_lim, step.dyn, step.const,
+                                   step.scal, smem_limit=smem_limit,
+                                   lanes=True)
+    before = select_move.launch_counts()["select_rows"]
+    got = bound(src_order, n_avail, cand_row=True)
+    assert select_move.launch_counts()["select_rows"] == before + 1
+    want = select_rows_lanes_ref(src_order, n_avail, step.cap_lim, step.dyn,
+                                 step.const, step.scal, cand_row=True)
+    torch.cuda.synchronize()
+    assert got[0].shape == (3, bucket.shape.k * step.r_cap)
+    for name, g, w in zip(("any", "dst", "cand_src", "cand_row"), got,
+                          want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_k1_one_lane_launch_is_the_single_launch(card):
+    """A carry stacked as one lane gives the launch without the lane
+    axis, bitwise."""
+    src_order, n_avail, cap_lim, dyn, const, scal = to_device(
+        carry("cluster_a", 0, True, False), card)
+    one = select_move.SelectRows(
+        cap_lim[None], {k: v[None] for k, v in dyn.items()},
+        {k: v[None] for k, v in const.items()},
+        {k: v.reshape(1) for k, v in scal.items()}, lanes=True)
+    got = one(src_order[None], n_avail.reshape(1), cand_row=True)
+    want = select_move.select_rows_fwd(src_order, n_avail, cap_lim, dyn,
+                                       const, scal, cand_row=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("any", "dst", "cand_src", "cand_row"), got,
+                          want):
+        assert torch.equal(g[0], w), name
+
+
+def test_k1_cached_launch_refuses_lanes(card):
+    """The cached instantiation takes one carry: the wrapper refuses a
+    cache on stacked lanes, and the C entry refuses a cached launch of
+    more than one lane with an error the wrapper raises on; neither
+    launches anything."""
+    _, bucket, step = _card_bucket(card)
+    _, src_order, n_avail = step.sources()
+    k, R, n = src_order.shape[1], step.r_cap, step.dyn["used"].shape[1]
+    ok = torch.zeros((k, R, n), dtype=torch.bool, device=card)
+    hit = torch.zeros((k, R // 8), dtype=torch.bool, device=card)
+    before = select_move.launch_count()
+    with pytest.raises(ValueError, match="cache"):
+        step.select_rows(src_order, n_avail, cache_ok=ok, hit_blk=hit, rb=8)
+    args = to_device(carry("small_test_cluster", 0, True, False), card)
+    k1, R1, n1 = (args[0].shape[0], args[3]["rows_on"].shape[1],
+                  args[3]["used"].shape[0])
+    bound = select_move.SelectRows(*args[2:])
+    bound._args.lanes = 2            # as a stacked carry would claim
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bound(*args[:2],
+              cache_ok=torch.zeros((k1, R1, n1), dtype=torch.bool,
+                                   device=card),
+              hit_blk=torch.zeros((k1, R1 // 8), dtype=torch.bool,
+                                  device=card), rb=8)
+    assert select_move.launch_count() == before
+
+
+def test_fleet_on_card_matches_serial_on_card(card):
+    """Three lanes of different sizes on the card to convergence: each
+    lane's moves and certificate counters equal a serial ``BatchPlanner``
+    configured like a fleet lane on the card, one ``select_rows`` launch
+    a bucket step, one host sync a round, and no host sync inside a fleet
+    chunk."""
+    from repro_torch import obs
+    from repro_torch.core.clustergen import sim_cluster
+    from repro_torch.core.planner import create_planner
+    from repro_torch.fleet import FleetPlanner
+    sizes = ((9, 0), (12, 1), (18, 2))
+    fp = FleetPlanner(chunk=8, row_block=8, device=card)
+    states, twins, serial = {}, {}, {}
+    for j, (n, seed) in enumerate(sizes):
+        states[j] = sim_cluster(seed=seed, n_hdd=n, n_ssd=0, fill=0.6)
+        twins[j] = sim_cluster(seed=seed, n_hdd=n, n_ssd=0, fill=0.6)
+        fp.add_cluster(j, states[j])
+        serial[j] = create_planner("equilibrium_batch", chunk=8,
+                                   row_block=8, device=card)
+    reg = obs.registry()
+    snap = reg.snapshot()
+    select_move.reset_launch_count()
+    keys = ("bound_hits", "pruned_sources", "tail_moves",
+            "sources_tried_hist")
+    for _ in range(40):
+        res = fp.plan_fleet({j: 8 for j in states})
+        for j in states:
+            want = serial[j].plan(twins[j], budget=8)
+            assert [(m.pg, m.slot, m.src_osd, m.dst_osd)
+                    for m in res[j].moves] == \
+                [(m.pg, m.slot, m.src_osd, m.dst_osd) for m in want.moves]
+            assert {k: res[j].stats[k] for k in keys} == \
+                {k: want.stats[k] for k in keys}
+        if all(r.stats["converged"] for r in res.values()):
+            break
+    d = reg.deltas_since(snap)
+    fleet_steps = int(d["fleet.chunks"]) * 8
+    serial_steps = int(d["batch.chunks"]) * 8
+    assert select_move.launch_counts()["select_rows"] \
+        == fleet_steps + serial_steps
+    assert int(d["fleet.round_syncs"]) == int(d["fleet.rounds"]) > 0
+    bucket = next(iter(fp._pack.buckets.values()))
+    step = fp._step_of(bucket)
+    mask = torch.ones(len(bucket), dtype=torch.bool, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step.run(8, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -155,20 +155,38 @@ def test_mutation_reaches_the_device_lanes_on_the_cpu(path, lane):
 @pytest.mark.parametrize("profile,seed", [("quick", 0), ("quick", 1),
                                           ("quick", 5), ("nightly", 2)])
 def test_generated_timeline_matches_reference(profile, seed):
-    """A generated timeline through the port's whole class (batch and
-    legacy lanes on the CPU), the ``mgr`` and ``none`` baselines and the
-    replay: every lane equals the reference's run of the same timeline
-    through its host lanes."""
+    """A generated timeline through the port's whole class (batch,
+    legacy and fleet lanes on the CPU), the ``mgr`` and ``none`` baselines
+    and the replay: every lane equals the reference's run of the same
+    timeline through its host lanes."""
     tl = sim.generate_timeline(seed, profile)
     want = ref_fuzz.run_timeline(ref_sim.generate_timeline(seed, profile),
                                  engines=HOST)
     lanes = fuzz.run_timeline(tl, device="cpu")
     assert set(lanes) == {"equilibrium", "equilibrium_batch",
                           "equilibrium_faithful", "equilibrium_jax_legacy",
-                          "mgr", "none"}
+                          "fleet", "mgr", "none"}
     for engine, lane in lanes.items():
         _same_lane(lane, want.get(engine, want["equilibrium"]))
     assert lanes["equilibrium_batch"].rebuilds <= 1
+
+
+def test_generated_timeline_through_the_fleet_lane():
+    """A generated ``quick`` timeline through the port's whole class (the
+    fleet lane, a fleet of one behind the scenario engine, included) on
+    the CPU, under every oracle (legality and variance replayed, the
+    throttle's ledger, agreement, at most one rebuild of each warm lane,
+    the baselines and the replay): the fleet lane equals the port's
+    ``equilibrium_faithful`` lane in moves and metrics JSON."""
+    tl = sim.generate_timeline(3, "quick")
+    snap = obs.registry().snapshot()
+    lanes = fuzz.run_timeline(tl, device="cpu")
+    d = obs.registry().deltas_since(snap)
+    assert "fleet" in lanes and lanes["fleet"].planned_moves > 0
+    _same_lane(lanes["fleet"], lanes["equilibrium_faithful"])
+    assert lanes["fleet"].rebuilds == 1
+    assert int(d.get("fleet.ticks", 0)) > 0
+    assert not any(k.startswith("fuzz.oracle_failures") for k in d)
 
 
 def test_fuzz_counters_match_reference():
@@ -270,11 +288,13 @@ def test_corpus_round_trip(tmp_path):
 @pytest.mark.parametrize("device", [None, "cuda", torch.device("cuda:0")],
                          ids=["default", "cuda", "cuda:0"])
 def test_cli_refuses_mutating_the_card_kernel_lane(device):
-    """``--mutate`` with the batch lane on a CUDA device (the default is
-    the card) raises and says why; the host lanes on CUDA and the batch
-    lane on the CPU pass the guard.  No card is needed."""
+    """``--mutate`` with the batch or the fleet lane on a CUDA device (the
+    default is the card) raises and says why; the host lanes on CUDA and
+    the batch lane on the CPU pass the guard.  No card is needed."""
     with pytest.raises(ValueError, match="select_rows"):
         cli.check_mutation_lanes(HOST + ("equilibrium_batch",), device)
+    with pytest.raises(ValueError, match="fleet lane"):
+        cli.check_mutation_lanes(HOST + ("fleet",), device)
     cli.check_mutation_lanes(HOST + ("equilibrium_jax_legacy",), device)
     cli.check_mutation_lanes(("equilibrium_batch",), "cpu")
     with pytest.raises(ValueError, match="select_rows"):
@@ -299,13 +319,14 @@ def test_cli_mutation_smoke_shrinks_small(capsys):
 
 def test_cli_replay_and_sweep(capsys):
     """Replay of the slack regression and a two-seed sweep through the
-    whole class on the CPU both exit 0."""
+    whole class (five engines, the fleet lane included) on the CPU both
+    exit 0."""
     path = fuzz.corpus_dir() / "legacy-slack-divergence.json"
     assert cli.main(["--replay", str(path), "--device", "cpu"]) == 0
     assert cli.main(["--seeds", "2:4", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert f"replay ok: {path} (30 moves)" in out
-    assert "sweep ok: 2 timelines x 4 engines, 0 oracle failures" in out
+    assert "sweep ok: 2 timelines x 5 engines, 0 oracle failures" in out
 
 
 # ---------------------------------------------------------------------------

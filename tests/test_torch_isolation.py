@@ -47,7 +47,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
             "repro_torch.kernels.ssd_scan", "repro_torch.models.lm",
             "repro_torch.models.convert",
             "repro_torch.configs.zamba2_7b", "repro_torch.core.simulate",
-            "repro_torch.sim.engine", "repro_torch.sim.generate"} <= walked
+            "repro_torch.sim.engine", "repro_torch.sim.generate",
+            "repro_torch.fleet.pack", "repro_torch.fleet.planner",
+            "repro_torch.fleet.service", "repro_torch.fleet.loadgen"} <= walked
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
