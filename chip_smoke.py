@@ -103,11 +103,13 @@ phases, one JSON line each, and exits non-zero if any fails:
    serialize-and-replay check, every oracle a gate (legality and
    variance replayed on a pre-plan copy, the throttle's ledger every
    tick, agreement of move streams and metrics JSON, one rebuild of the
-   batch and the fleet lane, replay; the fleet lane is a fleet of one on
-   the card); K1's ``select_rows`` once a step of the batch lanes and
-   once a step of the fleet lanes (counted apart) and ``masked_select``
-   once per source the legacy lanes evaluated, each more than zero
-   times; the fleet lane's seconds; oracle checks by oracle,
+   batch, the fleet and the sharded lane, replay; the fleet lane is a
+   fleet of one on the card, the sharded lane one shard with no process
+   group); K1's ``select_rows`` once a step of the batch lanes and once a
+   step of the fleet lanes (counted apart), its window form once a step
+   of the sharded lanes and ``masked_select`` once per source the legacy
+   lanes evaluated, each more than zero times; the fleet and sharded
+   lanes' seconds; oracle checks by oracle,
    timelines, lanes, moves and seconds; then the cluster-B lifecycle of
    ``cluster_b_lifecycle`` through the warm batch lane on the card
    behind the harness's replay proxy, its 24 ticks' moves replayed
@@ -217,15 +219,33 @@ phases, one JSON line each, and exits non-zero if any fails:
     (set-up and plan) before and after the serial plans'.  The paper fleet
     (clusters A to F, B phase 3's) in co-scheduled rounds to convergence,
     each lane equal to its serial planner (cluster B to phase 3's plan);
-14. the kernel table line (K1 twice: ``select_rows``'s uncached and,
+14. ``shard`` (after ``fleet``): the sharded batch engine
+    (``repro_torch.core.shard``) in an NCCL process group of one rank,
+    made in this process with a ``file://`` store.  K1's window form
+    (``select_rows_window_kernel``, both instantiations) bitwise against
+    ``select_rows_window_ref`` at cluster B's first step on every window
+    of the device axis split 1, 2 and 4 ways, staged and from device
+    memory, each split's windows folded as the engine folds its ranks
+    equal to one unwindowed ``select_rows`` launch, the whole axis's
+    window timed with its bound counted from the data; cluster B planned
+    by ``equilibrium_batch_sharded`` to convergence: phase 3's 839 moves,
+    variances, sources tried, certificate counters and ``batch.*``
+    counters, one window launch a step (896), no unwindowed
+    ``select_rows``, one host sync a chunk; one sharded chunk under
+    ``set_sync_debug_mode("error")``; the PyTorch operations and
+    collectives a step (``tools/step_op_count.py``'s ``count`` on the
+    card); a profiled sharded chunk; the serial plan's seconds right
+    after the sharded plan's;
+15. the kernel table line (K1 twice: ``select_rows``'s uncached and,
     as ``select_rows_cached``, its cached instantiation's launches and
     times; the uncached one's launches by path (the cold cluster-B plan, the warm
     lifecycle, the legacy lane's standalone reduction, the simulator's
     cluster-B lifecycle, the six scenarios, the fuzz sweep and corpus by
     kernel, the fleet lanes of the fuzz sweep and corpus, the cluster-B
-    lifecycle under the fuzzer's oracles, phase ``source_block``'s runs
-    and phase ``fleet``'s two fleets) and its 8-lane launch's times, and
-    the standalone
+    lifecycle under the fuzzer's oracles, phase ``source_block``'s runs,
+    phase ``fleet``'s two fleets, and the window form's on phase
+    ``shard``'s plan and the fuzzer's sharded lane) and its 8-lane
+    launch's times and the window form's, and the standalone
     reduction's launches and times at the legacy lane's shape beside
     them, with its times at the batch step's shape; K3 once: the
     tensor-core variant's launches and times at the zamba2 prefill, and
@@ -587,7 +607,9 @@ def division_only_dfma(ins: list[tuple[int, str]]) -> dict:
 
 
 def k1_instructions(build, ptx: subprocess.Popen) -> dict:
-    """``select_rows_kernel`` keeps the plain version's float64 rounding:
+    """``select_rows_kernel`` and its window form
+    ``select_rows_window_kernel`` keep the plain version's float64
+    rounding:
     in its PTX no float64 ``fma`` and no add, subtract or multiply without
     ``.rn``; in its SASS every DFMA is a division's own
     (:func:`division_only_dfma`), as many divisions as PTX's
@@ -603,7 +625,17 @@ def k1_instructions(build, ptx: subprocess.Popen) -> dict:
     ptxas = ptxas_kernels(build.ptxas_report("masked_select"))
     out = {}
     for name, body in entries.items():
-        if "select_rows_kernel" not in name:
+        # select_rows_kernel<kStaged, kCached, kLanes> and the window
+        # form's select_rows_window_kernel<kStaged>
+        if m := re.search(r"select_rows_kernelILb([01])ELb([01])ELb([01])E",
+                          name):
+            key = ("staged" if m.group(1) == "1" else "device_memory") \
+                + ("_cached" if m.group(2) == "1" else "") \
+                + ("_lanes" if m.group(3) == "1" else "")
+        elif m := re.search(r"select_rows_window_kernelILb([01])E", name):
+            key = "window_" + ("staged" if m.group(1) == "1"
+                               else "device_memory")
+        else:
             continue
         ops = [(m.group(1), m.group(2)) for m in PTX_F64_OP.finditer(body)]
         unrounded = sum(op in ("add", "sub", "mul") and ".rn" not in mods
@@ -611,11 +643,6 @@ def k1_instructions(build, ptx: subprocess.Popen) -> dict:
         fma = sum(op == "fma" for op, _ in ops)
         div = sum(op == "div" and ".rn" in mods for op, mods in ops)
         dfma = division_only_dfma(sass[name])
-        # select_rows_kernel<kStaged, kCached, kLanes>
-        m = re.search(r"ILb([01])ELb([01])ELb([01])E", name)
-        key = ("staged" if m.group(1) == "1" else "device_memory") \
-            + ("_cached" if m.group(2) == "1" else "") \
-            + ("_lanes" if m.group(3) == "1" else "")
         out[key] = {"ptx_f64_ops": len(ops), "ptx_fma_f64": fma,
                     "ptx_f64_without_rn": unrounded,
                     "ptx_div_rn_f64": div, **dfma, **ptxas.get(name, {})}
@@ -628,7 +655,8 @@ def k1_instructions(build, ptx: subprocess.Popen) -> dict:
               f"divisions: {out[key]}")
     check(set(out) == {"staged", "device_memory", "staged_cached",
                        "device_memory_cached", "staged_lanes",
-                       "device_memory_lanes"},
+                       "device_memory_lanes", "window_staged",
+                       "window_device_memory"},
           f"K1's PTX lists select_rows_kernel as {sorted(out)}")
     return {"k1_select_rows_instructions": out}
 
@@ -980,13 +1008,15 @@ def bench_row(name: str) -> dict:
             "pruned_sources": int(fields["pruned_sources"])}
 
 
-def profile_chunk(state, card: str, **options) -> dict:
+def profile_chunk(state, card: str, engine=None, kernel: str = K1_KERNEL,
+                  **options) -> dict:
     """Kernel time by name over the first chunk of a fresh cluster-B plan
     (profiler on, :func:`profile_session`; its timings are read for
-    shares, not reported as the plan's speed); ``options`` go to the
-    engine."""
+    shares, not reported as the plan's speed); ``engine``: the planner
+    class (default ``BatchPlanner``), ``options`` its options; ``kernel``
+    names K1's kernel in the profile."""
     from repro_torch.core.equilibrium_batch import BatchPlanner
-    planner = BatchPlanner(state, device="cuda", **options)
+    planner = (engine or BatchPlanner)(state, device="cuda", **options)
     planner.sync()
     out = []
 
@@ -1000,7 +1030,7 @@ def profile_chunk(state, card: str, **options) -> dict:
                   reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e3
     ops = sum(r[2] for r in rows)
-    k1 = [(ms, n) for ms, key, n in rows if K1_KERNEL in key]
+    k1 = [(ms, n) for ms, key, n in rows if kernel in key]
     return {"card": card, "chunk_steps": planner.chunk, "moves": moves,
             "wall_s": wall, "device_busy_s": busy_s if rows else None,
             "idle_share": (1.0 - busy_s / wall) if rows else None,
@@ -1103,7 +1133,8 @@ def phase_full(card: str, scale: int = 1, built: tuple | None = None
           f"host syncs {st['host_syncs']} != chunks {chunks} + re-pads "
           f"{repads}")
     steps = chunks * planner._impl.chunk
-    check(launches == {"select_rows": steps, "masked_select": 0},
+    check(launches == {"select_rows": steps, "masked_select": 0,
+                       "select_rows_window": 0},
           f"K1 launched {launches} times over {chunks} chunks ({steps} "
           f"steps) of {n} moves, expected select_rows once a step")
 
@@ -1136,6 +1167,11 @@ def phase_full(card: str, scale: int = 1, built: tuple | None = None
         return out
     emit("cluster_b", **out)
     out["move_list"] = as_tuples(res.moves)       # phase dense_lanes' gate
+    # phase shard's
+    out["variance_trajectory"] = [r.variance_after for r in res.records]
+    out["sources_tried"] = [r.sources_tried for r in res.records]
+    out["batch_counters"] = {k: int(v) for k, v in d.items()
+                             if k.startswith("batch.")}
     out["stats"] = {k: st[k] for k in FLEET_STAT_KEYS}   # phase fleet's
     out["moves"] = res.moves                      # phase cluster_b_replay's
     prof = profile_chunk(base.copy(), card)
@@ -1340,7 +1376,8 @@ def phase_warm(card: str, base) -> dict:
               f"chunks {n_chunks} + re-pads {repads} + "
               f"{non_structural} non-structural absorb")
         check(launches == {"select_rows": chunk * n_chunks,
-                           "masked_select": 0},
+                           "masked_select": 0,
+                           "select_rows_window": 0},
               f"warm step {name}: K1 launched {launches} over {n_chunks} "
               f"chunks")
         if want_structural is not None:
@@ -1466,7 +1503,8 @@ def check_legacy_launches(what: str, res, launches: dict, spy) -> int:
     evaluated source (one fetch each, ``host_syncs``) and never the fused
     kernel; returns the launches."""
     n = res.stats["host_syncs"]
-    check(n > 0 and launches == {"select_rows": 0, "masked_select": n}
+    check(n > 0 and launches == {"select_rows": 0, "masked_select": n,
+                                 "select_rows_window": 0}
           and spy.calls == n,
           f"{what}: K1 launched {launches}, {spy.calls} reduction calls, "
           f"{n} host syncs; expected one masked_select per evaluated "
@@ -1590,7 +1628,8 @@ def phase_dense_lanes(card: str, base, full: dict) -> dict:
                     small_launches += check_legacy_launches(what, res,
                                                             launches, spy)
                 else:
-                    check(launches == {"select_rows": 0, "masked_select": 0}
+                    check(launches == {"select_rows": 0, "masked_select": 0,
+                                       "select_rows_window": 0}
                           and spy.calls == 0, f"{what}: launched K1")
                 if extra.get("source_bounds"):
                     check((res.stats["bound_hits"],
@@ -1906,7 +1945,8 @@ def phase_lifecycle(card: str, base) -> dict:
     check(rebuilds == 1, f"lifecycle: {rebuilds} rebuilds, expected 1 (the "
           f"cold build)")
     check(launches == {"select_rows": chunks * cfg.moves_per_tick,
-                       "masked_select": 0},
+                       "masked_select": 0,
+                       "select_rows_window": 0},
           f"lifecycle: K1 launched {launches} over {chunks} chunks of "
           f"{cfg.moves_per_tick} steps")
     check(syncs == chunks + repads + by_path["non_structural"],
@@ -1964,7 +2004,8 @@ def phase_scenarios(card: str) -> dict:
               f"scenario {name}: metrics differ from BENCH_scenarios.json")
         chunks = int(d.get("batch.chunks", 0))
         check(chunks > 0 and launches == {"select_rows": chunks * chunk,
-                                          "masked_select": 0},
+                                          "masked_select": 0,
+                                          "select_rows_window": 0},
               f"scenario {name}: K1 launched {launches} over {chunks} "
               f"chunks of {chunk} steps")
         check(int(d.get("batch.rebuilds", 0)) == 1,
@@ -2005,29 +2046,35 @@ def fuzz_runs(timelines) -> dict:
     the ``mgr`` and ``none`` baselines and the replay, every oracle a
     gate.  Counts what K1 must have launched: one ``select_rows`` a step
     of the batch lane's chunks and one a step of the fleet lane's (a
-    fleet of one: a bucket chunk is ``moves_per_tick`` steps), one
+    fleet of one: a bucket chunk is ``moves_per_tick`` steps), one window
+    launch a step of the sharded lane's (one rank, in this process), one
     ``masked_select`` per source the legacy lane evaluated (its fetches,
-    ``dense.host_syncs``).  Each lane's seconds are summed by engine (the
-    replay's lane under its reference engine's name)."""
+    ``dense.host_syncs``).  Each lane's seconds and batch-engine chunks
+    are summed by engine (the replay's lane under its reference engine's
+    name)."""
     from repro_torch import fuzz, obs
     from repro_torch.fuzz import harness
     reg = obs.registry()
-    moves = lanes = steps = fleet_steps = 0
+    moves = lanes = steps = fleet_steps = sharded_steps = 0
     sources = reg.get("dense.host_syncs")
     per = {}
     lane_s: Counter = Counter()
+    lane_chunks: Counter = Counter()
     run_lane = harness.run_lane
 
     def timed_lane(tl, engine, *args, **kw):
         t = time.perf_counter()
+        chunks = reg.get("batch.chunks")
         try:
             return run_lane(tl, engine, *args, **kw)
         finally:
             lane_s[engine] += time.perf_counter() - t
+            lane_chunks[engine] += int(reg.get("batch.chunks") - chunks)
 
     t0 = time.perf_counter()
     for label, tl in timelines:
         snap = reg.snapshot()
+        lane_chunks.clear()
         t1 = time.perf_counter()
         harness.run_lane = timed_lane
         try:
@@ -2038,9 +2085,13 @@ def fuzz_runs(timelines) -> dict:
             harness.run_lane = run_lane
         d = reg.deltas_since(snap)
         per_chunk = max(1, int(tl.sim["moves_per_tick"]))
-        steps += int(d.get("batch.chunks", 0)) * per_chunk
+        check(sum(lane_chunks.values()) == int(d.get("batch.chunks", 0)),
+              f"fuzz {label}: batch chunks by lane {dict(lane_chunks)}")
+        steps += lane_chunks["equilibrium_batch"] * per_chunk
+        sharded_steps += lane_chunks["equilibrium_batch_sharded"] * per_chunk
         fleet_steps += int(d.get("fleet.chunks", 0)) * per_chunk
-        for engine in ("equilibrium_batch", "fleet"):
+        for engine in ("equilibrium_batch", "fleet",
+                       "equilibrium_batch_sharded"):
             check(got[engine].rebuilds == 1,
                   f"fuzz {label}: the {engine} lane rebuilt "
                   f"{got[engine].rebuilds} times")
@@ -2053,6 +2104,7 @@ def fuzz_runs(timelines) -> dict:
                       "seconds": time.perf_counter() - t1}
     return {"timelines": len(per), "lanes": lanes, "moves": moves,
             "batch_steps": steps, "fleet_steps": fleet_steps,
+            "sharded_steps": sharded_steps,
             "legacy_sources": int(reg.get("dense.host_syncs") - sources),
             "seconds": time.perf_counter() - t0,
             "lane_seconds": dict(sorted(lane_s.items())),
@@ -2087,18 +2139,22 @@ def phase_fuzz(card: str, base, life: dict) -> dict:
         runs[name] = fuzz_runs(timelines)
         got = select_move.launch_counts()
         # the batch lanes' and the legacy lanes' launches by kernel, the
-        # fleet lanes' select_rows under a key of their own
+        # fleet lanes' select_rows under a key of their own, the sharded
+        # lanes' window launches under theirs
         launches[name] = {"select_rows": runs[name]["batch_steps"],
                           "masked_select": runs[name]["legacy_sources"],
-                          "fleet_select_rows": runs[name]["fleet_steps"]}
+                          "fleet_select_rows": runs[name]["fleet_steps"],
+                          "select_rows_window": runs[name]["sharded_steps"]}
         check(got == {"select_rows": runs[name]["batch_steps"]
                       + runs[name]["fleet_steps"],
-                      "masked_select": runs[name]["legacy_sources"]}
+                      "masked_select": runs[name]["legacy_sources"],
+                      "select_rows_window": runs[name]["sharded_steps"]}
               and min(launches[name].values()) > 0,
               f"fuzz {name}: K1 launched {got}, the batch lanes ran "
               f"{runs[name]['batch_steps']} steps, the fleet lanes "
-              f"{runs[name]['fleet_steps']} and the legacy lanes evaluated "
-              f"{runs[name]['legacy_sources']} sources")
+              f"{runs[name]['fleet_steps']}, the sharded lanes "
+              f"{runs[name]['sharded_steps']} and the legacy lanes "
+              f"evaluated {runs[name]['legacy_sources']} sources")
     slack = runs["corpus"]["per_timeline"].get("legacy-slack-divergence")
     check(runs["corpus"]["timelines"] == 4 and slack is not None
           and "equilibrium_jax_legacy" in slack["lanes"],
@@ -2132,7 +2188,8 @@ def phase_fuzz(card: str, base, life: dict) -> dict:
           f"differ")
     check(lane.rebuilds == life["rebuilds"] == 1
           and full_launches == {"select_rows": life["select_rows_launches"],
-                                "masked_select": 0},
+                                "masked_select": 0,
+                                "select_rows_window": 0},
           f"fuzz at cluster B: {lane.rebuilds} rebuilds, K1 launched "
           f"{full_launches}; phase cluster_b_lifecycle: {life['rebuilds']} "
           f"and {life['select_rows_launches']}")
@@ -2155,6 +2212,12 @@ def phase_fuzz(card: str, base, life: dict) -> dict:
                "select_rows_launches": {
                    name: launches[name]["fleet_select_rows"]
                    for name in runs}},
+           "sharded_lane": {
+               "seconds": sum(r["lane_seconds"].get(
+                   "equilibrium_batch_sharded", 0.0) for r in runs.values()),
+               "select_rows_window_launches": {
+                   name: launches[name]["select_rows_window"]
+                   for name in runs}},
            "cluster_b": {
                "moves_replayed": lane.planned_moves, "ticks": cfg.ticks,
                "rebuilds": lane.rebuilds,
@@ -2175,8 +2238,9 @@ OPTIN_COUNTERS = ("tiles_walked", "cand_tiles", "cache_hits", "cache_misses",
                   "stash_moves")
 #: the reference engine's counters at cluster B (tests/_ref_batch_counters.py)
 REF_COUNTERS = ROOT / "tests" / "fixtures" / "batch_counters_cluster_b.json"
-#: plan-time turns per (legality_cache, pipeline) configuration
-OPTIN_TURNS = 5
+#: plan-time turns per (legality_cache, pipeline) configuration (five
+#: before phase ``shard`` joined the run's time limit)
+OPTIN_TURNS = 2
 
 
 def counted(state, traced: bool = True, **options) -> dict:
@@ -2237,7 +2301,8 @@ def check_cluster_b(what: str, got: dict, want: dict, bench: dict,
     check(got["host_syncs"] == got["chunks"] + got["repads"],
           f"cluster B {what}: {got['host_syncs']} host syncs over "
           f"{got['chunks']} chunks")
-    check(launches == {"select_rows": steps, "masked_select": 0}
+    check(launches == {"select_rows": steps, "masked_select": 0,
+                       "select_rows_window": 0}
           and cached == (steps if cache else 0),
           f"cluster B {what}: K1 launched {launches} ({cached} cached) "
           f"over {steps} steps")
@@ -2448,7 +2513,8 @@ def optin_fuzz() -> dict:
             timelines += 1
             moves += lane.planned_moves
     launches = select_move.launch_counts()
-    check(launches == {"select_rows": steps, "masked_select": 0}
+    check(launches == {"select_rows": steps, "masked_select": 0,
+                       "select_rows_window": 0}
           and select_move.cached_launch_count() == steps and steps > 0,
           f"fuzz with the cache: K1 launched {launches} "
           f"({select_move.cached_launch_count()} cached) over {steps} steps")
@@ -2508,7 +2574,8 @@ def phase_batch_optins(card: str, base, k1: dict) -> dict:
 #: sources in 9 blocks, the last padded to 27) and 25 (one block)
 SOURCE_BLOCKS = (3, 25)
 #: untraced plan-time turns per configuration of phase ``source_block``
-SOURCE_BLOCK_TURNS = 3
+#: (three before phase ``shard`` joined the run's time limit)
+SOURCE_BLOCK_TURNS = 2
 
 
 def k1_at_source_block(base, kb: int) -> dict:
@@ -2572,7 +2639,8 @@ def k1_at_source_block(base, kb: int) -> dict:
                   f"cached select_rows at source_block {kb} differs from "
                   f"its plain version ({name} hits, smem_limit {limit})")
     launches = select_move.launch_counts()
-    check(launches == {"select_rows": cases + 1, "masked_select": 0}
+    check(launches == {"select_rows": cases + 1, "masked_select": 0,
+                       "select_rows_window": 0}
           and select_move.cached_launch_count() == cases,
           f"source_block {kb}: K1 checks launched {launches}")
     return {"k": step.k, "k_pad": step.k_pad, "steps_before": steps,
@@ -2867,7 +2935,8 @@ def check_fleet_run(what: str, reg, snap, launches: dict,
     check(rounds > 0 and syncs == rounds,
           f"{what}: {syncs} round fetches over {rounds} rounds")
     check(launches == {"select_rows": chunks * FLEET_CHUNK,
-                       "masked_select": 0},
+                       "masked_select": 0,
+                       "select_rows_window": 0},
           f"{what}: K1 launched {launches} over {chunks} bucket chunks of "
           f"{FLEET_CHUNK} steps")
     return {"rounds": rounds, "round_syncs": syncs, "chunks": chunks,
@@ -3086,6 +3155,246 @@ def phase_fleet(card: str, base, full: dict, env: dict) -> dict:
                "serial_seconds": paper_serial_s},
            "part_s": part_s, "seconds": time.perf_counter() - t_phase}
     emit("fleet", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase shard: the sharded batch engine (``repro_torch.core.shard``) in an
+# NCCL group of one rank, and K1's window form
+
+#: the splits of the device axis K1's window form is held to its plain
+#: version at
+SHARD_WAYS = (1, 2, 4)
+
+
+def window_bytes(wargs: tuple) -> int:
+    """The bytes K1's window form must move: the window's (n,) device
+    vectors, the source side's (n,) vectors at the sources, its
+    destination-count block read once, each gathered row's entries once
+    (row id, packed record, acting set, criterion), the outputs written
+    once."""
+    src_order, _, rows_k, _, act_k, _, _, dyn, const, _ = wargs
+    k, R = rows_k.shape
+    S, L = act_k.shape[2], const["dev_domain"].shape[0]
+    P, n_local = dyn["dst_ok"].shape
+    return (n_local * (5 * 8 + 1 + 8 * L) + P * n_local + 3 * 8 * k
+            + k * R * (8 + 8 * 8 + 8 * S + 1) + k * R * 5 + 9 * k)
+
+
+def shard_window_k1(args_b: tuple, div_ops: int) -> dict:
+    """K1's window form at cluster B's first step: every window of the
+    device axis split :data:`SHARD_WAYS` ways, staged and from device
+    memory, bitwise against ``select_rows_window_ref`` (any, global dst,
+    cand_src, cand_row); each split's windows, launched with every
+    position available and folded as the engine folds its ranks
+    (``shard_winner_better``, then the parked positions masked), equal to
+    one unwindowed ``select_rows`` launch; the whole axis's window (one
+    rank's) timed, its bound counted from the data."""
+    from _select_rows_carries import fold_windows, window_args
+    from repro_torch.kernels import select_move
+    from repro_torch.kernels.ref import select_rows_window_ref
+    select_move.reset_launch_count()
+    unwindowed = select_move.select_rows_fwd(*args_b)
+    k = args_b[0].shape[0]
+    every = torch.full((), k, device="cuda")
+    avail = torch.arange(k, device="cuda") < args_b[1]
+    worst, cases, folds = 0, 0, 0
+    for ways in SHARD_WAYS:
+        for limit in (None, 0):
+            outs = []
+            for rank in range(ways):
+                wargs, base = window_args(args_b, ways, rank)
+                bound = select_move.SelectRowsWindow(*wargs[6:], base,
+                                                     smem_limit=limit)
+                got = bound(*wargs[:6], cand_row=True)
+                want = select_rows_window_ref(*wargs, base=base,
+                                              cand_row=True)
+                torch.cuda.synchronize()
+                err = int((got[1].long() - want[1].long()).abs().max())
+                worst = max(worst, err)
+                cases += 1
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"K1's window form differs from its plain version at "
+                      f"window {rank} of {ways} (smem_limit {limit}; max "
+                      f"|dst diff| {err})")
+                outs.append((*bound(wargs[0], every, *wargs[2:6]),
+                             wargs[7]["util"]))
+            folded = fold_windows(outs, avail)
+            folds += 1
+            check(all(torch.equal(g, w) for g, w in zip(folded, unwindowed)),
+                  f"K1's {ways} windows folded (smem_limit {limit}) differ "
+                  f"from one unwindowed select_rows launch")
+    launches = select_move.launch_counts()
+    check(launches == {"select_rows": 1, "masked_select": 0,
+                        "select_rows_window": 2 * cases},
+          f"K1's window checks launched {launches}")
+    # the whole device axis as one window: world 1's launch
+    wargs, base = window_args(args_b, 1, 0)
+    times = {}
+    for name, limit in (("staged", None), ("device_memory", 0)):
+        bound = select_move.SelectRowsWindow(*wargs[6:], base,
+                                             smem_limit=limit)
+        times[name] = {"ms": time_cuda(lambda: bound(*wargs[:6])),
+                       "device_ms": device_ms(lambda: bound(*wargs[:6]),
+                                              50)}
+    plain_ms = time_cuda(lambda: select_rows_window_ref(*wargs, base=base),
+                         20, 2)
+    work = select_rows_work(args_b, div_ops)
+    nbytes = window_bytes(wargs)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(work["f64_ops"] / F64_OPS_PER_S,
+                 work["int_ops"] / INT_OPS_PER_S) * 1e3
+    return {"at": "cluster B's first step, the whole device axis as one "
+                  "window (world 1)",
+            "windows_checked": cases, "folds_checked": folds,
+            "max_abs_err": worst,
+            "comparison": "bitwise: any, dst, cand_src and cand_row; the "
+                          "folded windows against one select_rows launch",
+            "ms": times["staged"]["ms"],
+            "device_ms": times["staged"]["device_ms"],
+            "device_memory": times["device_memory"],
+            "plain_ms": plain_ms, "library_ms": None,
+            "library_device_ms": None,
+            "library": "none: no single PyTorch call computes the selection",
+            **{key: work[key] for key in (
+                "shape", "live_pairs", "pairs_to_slot_tests",
+                "candidate_pairs", "legal_pairs", "f64_ops", "int_ops")},
+            "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "launches_counted_apart": launches}
+
+
+def sharded_plan(state, **options) -> tuple:
+    """A cold plan of ``state`` to convergence with
+    ``equilibrium_batch_sharded`` on the card: (the result, its seconds,
+    the registry's deltas, K1's launches)."""
+    from repro_torch import obs
+    from repro_torch.core.planner import create_planner
+    from repro_torch.kernels import select_move
+    planner = create_planner("equilibrium_batch_sharded", device="cuda",
+                             **options)
+    reg = obs.registry()
+    torch.cuda.synchronize()
+    snap = reg.snapshot()
+    select_move.reset_launch_count()
+    t0 = time.perf_counter()
+    res = planner.plan(state, record_trajectory=True, record_free_space=False)
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, reg.deltas_since(snap),
+            select_move.launch_counts())
+
+
+def phase_shard(card: str, base, full: dict, env: dict) -> dict:
+    """The sharded batch engine in an NCCL process group of one rank, made
+    in this process with a ``file://`` store: K1's window form
+    (:func:`shard_window_k1`); ``cluster_b(scale=1)`` planned by
+    ``equilibrium_batch_sharded`` to convergence on an exact copy, its
+    moves, variances, sources tried and certificate counters phase 3's
+    serial plan's, its ``batch.*`` counters phase 3's, one window launch
+    a step and no unwindowed ``select_rows``, one host sync a chunk; one
+    sharded chunk under ``torch.cuda.set_sync_debug_mode("error")``; the
+    PyTorch operations and collectives a step (``tools/step_op_count.py``
+    on the card); a profiled sharded chunk; the serial engine's plan
+    seconds right after the sharded plan's."""
+    import tempfile
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "tests"))
+    sys.path.insert(0, str(ROOT / "tools"))
+    from repro_torch.core.equilibrium_batch import BatchPlanner
+    from repro_torch.core.planner import create_planner
+    from repro_torch.core.shard import ShardedBatchPlanner
+    from step_op_count import count
+    t_phase = time.perf_counter()
+    ins = env["k1_select_rows_instructions"]["window_staged"]
+    planner = BatchPlanner(exact_copy(base), device="cuda")
+    planner.sync()
+    _, src_order, n_avail = planner._step.sources()
+    step = planner._step
+    args_b = (src_order, n_avail, step.cap_lim, step.dyn, step.const,
+              step.scal)
+    k1w = shard_window_k1(args_b, ins["dfma_per_division"][0] + 1)
+    emit("shard_k1", card=card, **k1w)
+
+    tmp = tempfile.TemporaryDirectory(prefix="shard-")
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/store",
+                            world_size=1, rank=0)
+    try:
+        res, plan_s, d, launches = sharded_plan(exact_copy(base))
+        st = res.stats
+        chunks = int(d.get("batch.chunks", 0))
+        repads = int(d.get("batch.repads", 0))
+        steps = chunks * 64
+        check(as_tuples(res.moves) == full["move_list"]
+              and {k: st[k] for k in FLEET_STAT_KEYS} == full["stats"],
+              f"cluster B sharded: {len(res.moves)} moves, "
+              f"{ {k: st[k] for k in FLEET_STAT_KEYS} }; phase 3's "
+              f"{len(full['move_list'])} and {full['stats']}")
+        check([r.variance_after for r in res.records]
+              == full["variance_trajectory"]
+              and [r.sources_tried for r in res.records]
+              == full["sources_tried"],
+              "cluster B sharded: the variances or sources tried differ "
+              "from phase 3's")
+        counters = {k: int(v) for k, v in d.items() if k.startswith("batch.")}
+        check(counters == full["batch_counters"],
+              f"cluster B sharded: batch counters {counters}, phase 3's "
+              f"{full['batch_counters']}")
+        check(st["shards"] == 1 and st["host_syncs"] == chunks + repads,
+              f"cluster B sharded: {st['shards']} shards, {st['host_syncs']}"
+              f" host syncs over {chunks} chunks and {repads} re-pads")
+        check(launches == {"select_rows": 0, "masked_select": 0,
+                           "select_rows_window": steps},
+              f"cluster B sharded: K1 launched {launches} over {steps} "
+              f"steps")
+
+        bp = ShardedBatchPlanner(exact_copy(base), device="cuda")
+        bp.sync()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = bp._step.run(bp.chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        no_sync_moves = int((out[:5 * bp.chunk].view(-1, 5)[:, 0] >= 0)
+                            .sum())
+        check(no_sync_moves > 0, "the sharded chunk emitted no move")
+        ops = {"sharded": count(None, 8, planner=ShardedBatchPlanner(
+                   exact_copy(base), device="cuda")),
+               "serial": count(None, 8, planner=BatchPlanner(
+                   exact_copy(base), device="cuda"))}
+        prof = profile_chunk(exact_copy(base), card,
+                             engine=ShardedBatchPlanner,
+                             kernel="select_rows_window_kernel")
+
+        # the serial engine's plan right after the gated sharded one
+        serial_planner = create_planner("equilibrium_batch", device="cuda")
+        state = exact_copy(base)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = serial_planner.plan(state, record_free_space=False)
+        torch.cuda.synchronize()
+        serial = time.perf_counter() - t0
+        check(len(got.moves) == len(full["move_list"]),
+              f"the serial plan beside phase shard: {len(got.moves)} moves")
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    sharded = plan_s
+    out = {"card": card, "world_size": 1, "backend": "nccl",
+           "moves": len(res.moves), "plan_s": plan_s,
+           "chunks": chunks, "repads": repads,
+           "host_syncs": st["host_syncs"],
+           "bound_hits": st["bound_hits"],
+           "pruned_sources": st["pruned_sources"],
+           "k1_launches": launches, "batch_counters": counters,
+           "no_sync_chunk_moves": no_sync_moves,
+           "step_ops": ops, "profile": prof,
+           "serial_s": serial, "sharded_s": sharded,
+           "sharded_over_serial": sharded / serial,
+           "seconds": time.perf_counter() - t_phase}
+    emit("shard", **out)
+    out["k1"] = k1w
     return out
 
 
@@ -3894,6 +4203,7 @@ def run_all(b2: subprocess.Popen) -> int:
     optins = phase_batch_optins(card, built_b[0], k1)
     blocks = phase_source_block(card, built_b[0])
     fleet = phase_fleet(card, built_b[0], full, env)
+    shard = phase_shard(card, built_b[0], full, env)
     # the entry's launches and times are the tensor-core variant's at the
     # zamba2 prefill (N 64); its N 128 instantiation's at mamba2's shape
     # and the SIMT variant's there (float32, off both prefills) stand
@@ -3951,7 +4261,13 @@ def run_all(b2: subprocess.Popen) -> int:
                           "cluster-B fleet (8 lanes)":
                               fleet["cluster_b_fleet"]["k1_launches"],
                           "paper fleet (A-F)":
-                              fleet["paper_fleet"]["k1_launches"]},
+                              fleet["paper_fleet"]["k1_launches"],
+                          "cluster B sharded (world 1), window form":
+                              shard["k1_launches"]["select_rows_window"],
+                          "fuzz sweep and corpus, sharded lane, window "
+                          "form":
+                              fz["sharded_lane"][
+                                  "select_rows_window_launches"]},
         fleet_8_lanes={
             "launches": fleet["cluster_b_fleet"]["k1_launches"],
             **{k: fleet["k1"][k] for k in (
@@ -3959,6 +4275,13 @@ def run_all(b2: subprocess.Popen) -> int:
                 "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_device_ms")},
             "lanes_1_at_lane_0": fleet["k1"]["lanes_1_at_lane_0"]},
+        window_form={
+            "launches": shard["k1_launches"]["select_rows_window"],
+            **{k: shard["k1"][k] for k in (
+                "at", "shape", "max_abs_err", "ms", "device_ms",
+                "device_memory", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms", "windows_checked",
+                "folds_checked")}},
         standalone_masked_select={
             "launches": legacy_b,
             "max_abs_err": dense["cluster_b"]["equilibrium_jax_legacy"][

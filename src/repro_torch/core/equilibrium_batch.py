@@ -212,6 +212,8 @@ class _Chunk:
         self.k_pad = self.n_sb * kb
         dev = const["cap"].device
         n = const["cap"].shape[0]
+        #: the devices the fetched certificate vector covers
+        self.n_dev = n
         self.dev_iota = torch.arange(n, device=dev)
         self.pos = torch.arange(self.k_pad, device=dev)
         self.pad = torch.zeros(self.k_pad - k, dtype=I64, device=dev)
@@ -219,14 +221,22 @@ class _Chunk:
         self.pos_sb = self.pos // kb            # each position's block
         self.cap_lim = legality.capacity_limit(const["cap"],
                                                scal["headroom"])
-        # K1 bound to this carry (checked once; a re-pad rebinds it)
-        self.select_rows = bind_select_rows(self.cap_lim, dyn, const, scal)
+        self._bind_kernel()
         if cache:
             self.fresh_cache()
+
+    def _bind_kernel(self) -> None:
+        """K1 bound to this carry (checked once; a re-pad rebinds it)."""
+        self.select_rows = bind_select_rows(self.cap_lim, self.dyn,
+                                            self.const, self.scal)
 
     @property
     def r_cap(self) -> int:
         return self.dyn["rows_on"].shape[1]
+
+    def _nrows_of(self, src_order) -> torch.Tensor:
+        """The (k_pad,) row counts of the step's sources."""
+        return self.dyn["nrows"][src_order]
 
     def fresh_cache(self) -> None:
         """An empty legality cache for the current r_cap: no entry tagged,
@@ -287,7 +297,7 @@ class _Chunk:
         winner's block walks, where its first fuller slots have resolved
         and the winner has found its row)."""
         rb, kb, pos = self.rb, self.kb, self.pos
-        nrows = torch.where(pos < n_avail, self.dyn["nrows"][src_order], 0)
+        nrows = torch.where(pos < n_avail, self._nrows_of(src_order), 0)
         blocks = ((nrows + rb - 1) // rb).clamp(min=1)
         sb_w = p // kb
         n_full = torch.where(p < self.k, sb_w,
@@ -330,7 +340,7 @@ class _Chunk:
         blk = torch.arange(self.r_cap // rb, device=self.pos.device)[None, :]
         if self.kb == 1:
             pos = self.pos[:, None]
-            nrows = self.dyn["nrows"][src_order]
+            nrows = self._nrows_of(src_order)
             blocks = ((nrows + rb - 1) // rb).clamp(min=1)[:, None]
             before = (pos < torch.minimum(p, n_avail)) & (blk < blocks)
             winner = (pos == p) & (blk <= ri // rb)
@@ -749,9 +759,13 @@ class BatchPlanner:
                 "n_f": t(float(n_dev), F64)}     # the variance divisor
         self._pruned_mask = pruned.copy()    # the CPU carry shares memory
         self._pruned = int(pruned.sum())
-        return _Chunk(dyn, const, scal, k=min(cfg.k, max(n_dev, 1)),
-                      bounds=self.source_bounds, kb=self._kb, rb=self._rb,
-                      cache=self.legality_cache)
+        return self._chunk(dyn, const, scal, k=min(cfg.k, max(n_dev, 1)))
+
+    def _chunk(self, dyn: dict, const: dict, scal: dict, k: int) -> _Chunk:
+        """The step over a new carry (the sharded engine partitions it
+        first)."""
+        return _Chunk(dyn, const, scal, k=k, bounds=self.source_bounds,
+                      kb=self._kb, rb=self._rb, cache=self.legality_cache)
 
     def _build(self) -> None:
         """Full rebuild of the device carry from ``self.state``."""
@@ -1232,7 +1246,7 @@ class BatchPlanner:
         if take:
             reg.inc("batch.stash_replayed", take)
         m = self.chunk
-        n = self._step.dev_iota.shape[0]
+        n = self._step.n_dev
         telemetry = _obs.enabled()
         pending = None          # (packed result, dispatch seconds) of i+1
         while len(raw) < budget and not self._done:

@@ -20,7 +20,10 @@ the expressions behind those answers:
 * the faithful planner's emptiest-first destination cutoff
   (``before_source``) and fullest-first source order (``fullest_first``);
 * the source-bound certificate triggers (``bound_crossed``,
-  ``bound_capacity_binding``, ``count_flip_enables``).
+  ``bound_capacity_binding``, ``count_flip_enables``);
+* the cross-shard combine math of the sharded engine (``shard_owns``,
+  ``shard_gather_contrib``, ``shard_gather_finish``, ``shard_any``,
+  ``shard_winner_better``).
 
 Everything here is a pure function written with operators that NumPy
 arrays, Python floats and ``torch`` tensors all implement, so the *same*
@@ -251,3 +254,91 @@ def _bound_capacity_binding(used_dropped_before, cap_limit_dropped,
 def _count_flip_enables(dst_ok_before, dst_ok_after):
     """The destination ideal-count criterion flipped failing→passing."""
     return dst_ok_after & ~dst_ok_before
+
+
+# ---------------------------------------------------------------------------
+# Cross-shard reductions
+#
+# The sharded batch engine (core/shard.py) splits the destination axis of
+# the selection into contiguous ascending device blocks, one per rank of
+# its process group: rank ``s`` owns global devices ``[s*w, (s+1)*w)``.
+# Everything bitwise-critical about recombining per-rank partial results
+# lives here, next to the serial expressions it must agree with:
+#
+# * the winner rule — the serial engine's masked select is a
+#   first-occurrence argmin of utilization over legal destinations, i.e.
+#   the lexicographic minimum of (util, device index).  Each rank selects
+#   over its own block (first-occurrence argmin within it, so its winner
+#   already carries the lowest in-block index), and the ranks' winners
+#   are folded with :func:`shard_winner_better`.  Because the blocks are
+#   contiguous and ascending, a cross-rank utilization tie resolves to the
+#   lower rank — exactly the serial argmin's lowest-global-index
+#   tie-break;
+# * owner gathers — per-device carry rows (row tables, certificates,
+#   ``dst_ok`` columns), per-row registry records and per-PG acting sets
+#   live only on their owner rank; a value at a *global* index is
+#   reconstructed with a one-owner sum (:func:`shard_gather_contrib` /
+#   :func:`shard_gather_finish`), exact for the integer payloads it is
+#   used on (the engine sends float64 values as their int64 bit patterns,
+#   so that -0.0 and NaN survive too);
+# * the no-candidate certificate predicate — a source is prunable only
+#   when *no rank anywhere* holds a candidate, so the any-candidate bit is
+#   the summed OR of the local bits (an integer sum of the bools compared
+#   against zero; the engine combines ranks only through these helpers).
+#
+# Like everything above, these are written against operators NumPy and
+# torch share; the engine supplies the collectives (``all_reduce`` /
+# ``all_gather``) and these functions supply the combine math.
+
+
+@_public
+def _shard_owns(dev_index, shard_base, shard_width):
+    """Does this rank own global index ``dev_index``?  Ranks hold
+    contiguous ascending blocks, so ownership is a half-open interval
+    test — the mask every owner gather and owner-local scatter keys on
+    (non-owned scatter targets map to a drop sentinel)."""
+    return (dev_index >= shard_base) & (dev_index < shard_base + shard_width)
+
+
+@_public
+def _shard_gather_contrib(values, owns, neutral=0):
+    """One rank's addend for a sum-reconstructed gather: exactly one rank
+    owns each requested index, so summing ``owns * (value - neutral)``
+    across ranks yields ``value - neutral`` — shifted by ``neutral`` so a
+    padding payload (e.g. ``-1`` row sentinels) contributes zero from
+    non-owners.  Exact for the integer and bool payloads the engine
+    gathers (no float rounding enters the reduction)."""
+    return (values - neutral) * owns
+
+
+@_public
+def _shard_gather_finish(summed, neutral=0):
+    """Undo :func:`shard_gather_contrib`'s neutral shift after the sum:
+    ``sum(contrib) + neutral`` is the owner's value."""
+    return summed + neutral
+
+
+@_public
+def _shard_any(summed_any):
+    """Global any-candidate bit from the sum of per-rank local bits (cast
+    to an integer type by the engine): the certificate predicate must see
+    every rank's candidates — a source fruitless on this rank may hold a
+    candidate on another, and pruning it would diverge from the serial
+    walk."""
+    return summed_any > 0
+
+
+@_public
+def _shard_winner_better(any_new, util_new, dst_new, any_best, util_best,
+                         dst_best):
+    """Does rank-new's local winner beat the incumbent in the global
+    emptiest-first order?  The full lexicographic (util asc, global device
+    index asc) comparison — the same total order the serial
+    first-occurrence argmin minimizes.  Folding ranks in ascending order
+    with this predicate reproduces the serial winner bit for bit: a
+    strict utilization win replaces the incumbent, a tie falls to the
+    index term, and with contiguous ascending blocks a later rank's
+    indices are all larger, so ties keep the earlier rank — the serial
+    tie-break."""
+    return any_new & (~any_best | (util_new < util_best)
+                      | ((util_new == util_best) & (dst_new < dst_best)))

@@ -19,10 +19,12 @@ planner every consumer calls), ``equilibrium_jax_legacy`` (the
 per-source lane through K1's standalone reduction), ``equilibrium_batch``
 (the device-resident engine), ``mgr`` and ``none``; ``fleet``
 (:mod:`repro_torch.fleet.planner`, the lane-batched multi-cluster
-engine) registers when first looked up.  The legacy, batch and fleet
-lanes run on the CUDA card unless the caller passes ``device="cpu"``.
-The five Equilibrium planners share the ``equilibrium`` equivalence
-tag: they emit bitwise-identical move streams.
+engine) and ``equilibrium_batch_sharded`` (:mod:`repro_torch.core.shard`,
+the batch engine over a device axis split across a process group's
+ranks) register when first looked up.  The legacy, batch, fleet and
+sharded lanes run on the CUDA card unless the caller passes
+``device="cpu"``.  The six Equilibrium planners share the ``equilibrium``
+equivalence tag: they emit bitwise-identical move streams.
 """
 
 from __future__ import annotations
@@ -127,6 +129,7 @@ _REGISTRY: dict[str, PlannerSpec] = {}
 #: ``@register_planner`` fills the registry slot.
 _LAZY_PLANNERS: dict[str, str] = {
     "fleet": "repro_torch.fleet.planner",
+    "equilibrium_batch_sharded": "repro_torch.core.shard",
 }
 
 

@@ -48,6 +48,21 @@
 // it, whose instructions are those of the kernel before the lane axis.
 // The cached instantiation takes one lane only.
 //
+// The window form (the sharded engine, repro_torch/core/shard.py): one
+// rank of a process group holds the destination axis's block [base, base
+// + n_local) of the per-device carry and a block of the row registry and
+// the acting table, so select_rows_window_kernel reads the source and row
+// side from tensors the engine gathered for the step from their owners
+// (the sources' rows rows_k (k, R), those rows' packed records rec
+// (k, R, 8), their PGs' acting sets act_k (k, R, S), the source-count
+// criterion src_ok (k, R)), its dst_ok block (P, n_local), and the (n,)
+// device vectors every rank holds whole.  The loop over destinations runs
+// over the window, the staged vectors cover only the window, member and
+// domain tests compare global ids, and dst is a global index (base where
+// the row has no legal destination in the window).  The criteria, the
+// float64 expressions and the reduction are select_rows_kernel's; there
+// is no cache and no lane axis.
+//
 // The legality cache (the batch engine's opt-in): a second instantiation
 // takes cache_ok (k, R, n) candidate bytes and hit_blk (k, R / rb), one
 // flag per block of rb rows.  A warp whose row lies in a hit block reads
@@ -164,6 +179,58 @@ static_assert(sizeof(SelectRowsArgs) == 8 * (0 SELECT_ROWS_FIELDS(
                                                  SELECT_ROWS_ONE)),
               "every field of SelectRowsArgs is 8 bytes");
 #undef SELECT_ROWS_ONE
+
+// The window form's arguments, as SELECT_ROWS_FIELDS: every field 8
+// bytes wide, tensors contiguous, the wrapper filling each by name.
+#define SELECT_ROWS_WINDOW_FIELDS(X)                                        \
+  X(const long long*, src_order)   /* (k,) the step's sources, global */   \
+  X(const long long*, n_avail)     /* () sources not parked */              \
+  X(const long long*, rows_k)      /* (k, R) their rows, -1 padded */       \
+  X(const long long*, rec)         /* (k, R, 8) the rows' records */        \
+  X(const long long*, act_k)       /* (k, R, S) their PGs' acting sets */   \
+  X(const uint8_t*, src_ok)        /* (k, R) source-count criterion */      \
+  X(const uint8_t*, dst_ok)        /* (P, n_local) this rank's block */     \
+  X(const double*, used)           /* (n,) every device */                  \
+  X(const double*, util)           /* (n,) */                               \
+  X(const double*, cap)            /* (n,) */                               \
+  X(const double*, cap_lim)        /* (n,) */                               \
+  X(const long long*, dev_class)   /* (n,) */                               \
+  X(const uint8_t*, dev_in)        /* (n,) */                               \
+  X(const long long*, dev_domain)  /* (L, n) */                             \
+  X(const double*, us)             /* (1,) */                               \
+  X(const double*, usq)            /* (1,) */                               \
+  X(const double*, n_f)            /* () */                                 \
+  X(const double*, min_dvar)       /* () */                                 \
+  X(uint8_t*, any_out)             /* (k, R) */                             \
+  X(int32_t*, dst_out)             /* (k, R) global indices */              \
+  X(uint8_t*, cand_src)            /* (k,) */                               \
+  X(uint8_t*, cand_row)            /* (k, R), or null */                    \
+  X(long long, k)                                                           \
+  X(long long, R)                                                           \
+  X(long long, n)                  /* devices in all */                     \
+  X(long long, S)                                                           \
+  X(long long, L)                                                           \
+  X(long long, P)                                                           \
+  X(long long, base)               /* the window's first device */          \
+  X(long long, n_local)            /* and its width */
+
+struct SelectRowsWindowArgs {
+#define SELECT_ROWS_FIELD(type, name) type name;
+  SELECT_ROWS_WINDOW_FIELDS(SELECT_ROWS_FIELD)
+#undef SELECT_ROWS_FIELD
+};
+
+#define SELECT_ROWS_ONE(type, name) +1
+static_assert(sizeof(SelectRowsWindowArgs) ==
+                  8 * (0 SELECT_ROWS_WINDOW_FIELDS(SELECT_ROWS_ONE)),
+              "every field of SelectRowsWindowArgs is 8 bytes");
+#undef SELECT_ROWS_ONE
+
+// The columns of a packed record (repro_torch/kernels/ref.py SH_FIELDS):
+// the row's PG, pool, class, level, slot, rule step's first slot and slot
+// count, and its bytes as a float64 bit pattern.
+enum RecField { kRecPg, kRecPool, kRecClass, kRecLevel, kRecSlot, kRecSbase,
+                kRecScnt, kRecSize, kRecFields };
 
 namespace {
 
@@ -541,44 +608,240 @@ select_rows_kernel(const SelectRowsArgs a) {
   }
 }
 
+// The window's (n,) vectors from their first element on: each pointer
+// moved on by base (dev_domain's rows keep the global stride n).  A call
+// of its own, as lane_args_apart, so that the device-memory
+// instantiation's pointer arithmetic stays out of its divisions.
+struct WindowVectors {
+  const double *util, *used, *cap, *cap_lim;
+  const long long *dev_class, *dev_domain;
+  const uint8_t* dev_in;
+};
+__device__ __noinline__ WindowVectors window_vectors(
+    const SelectRowsWindowArgs& a) {
+  return {a.util + a.base,      a.used + a.base,      a.cap + a.base,
+          a.cap_lim + a.base,   a.dev_class + a.base, a.dev_domain + a.base,
+          a.dev_in + a.base};
+}
+
+// select_rows_kernel's block over one rank's window of the destination
+// axis: source blockIdx.y's rows as the engine gathered them, each tested
+// against the n_local devices of the window.  Local index i is global
+// device base + i.
+template <bool kStaged>
+__global__ void __launch_bounds__(kSelThreads)
+select_rows_window_kernel(const SelectRowsWindowArgs a) {
+  using Id = typename std::conditional<kStaged, int, long long>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int block_flags[kMaxCluster];  // read in the cluster's block 0
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = static_cast<int>(a.n_local);
+  const int R = static_cast<int>(a.R);
+  const int S = static_cast<int>(a.S);
+  const int base = static_cast<int>(a.base);
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+
+  const double *util, *used, *cap, *cap_lim;
+  const Id *dev_class, *dev_domain;
+  const uint8_t* dev_in;
+  long long dom_stride;  // between two levels' rows of dev_domain
+  int* slots;
+  if constexpr (kStaged) {
+    const int L = static_cast<int>(a.L);
+    double* f = reinterpret_cast<double*>(smem);
+    int* ids = reinterpret_cast<int*>(f + 4 * n);
+    uint8_t* in = reinterpret_cast<uint8_t*>(ids + (L + 1) * n);
+    for (int i = threadIdx.x; i < n; i += kSelThreads) {
+      const long long g = a.base + i;
+      f[i] = a.util[g];
+      f[n + i] = a.used[g];
+      f[2 * n + i] = a.cap[g];
+      f[3 * n + i] = a.cap_lim[g];
+      ids[i] = static_cast<int>(a.dev_class[g]);
+      for (int l = 0; l < L; ++l)
+        ids[(l + 1) * n + i] =
+            static_cast<int>(a.dev_domain[static_cast<long long>(l) * a.n + g]);
+      in[i] = a.dev_in[g];
+    }
+    util = f;
+    used = f + n;
+    cap = f + 2 * n;
+    cap_lim = f + 3 * n;
+    dev_class = ids;
+    dev_domain = ids + n;
+    dom_stride = n;
+    dev_in = in;
+    slots = reinterpret_cast<int*>(smem + staged_bytes(a.n_local, a.L));
+  } else {
+    const WindowVectors w = window_vectors(a);
+    util = w.util;
+    used = w.used;
+    cap = w.cap;
+    cap_lim = w.cap_lim;
+    dev_class = w.dev_class;
+    dev_domain = w.dev_domain;
+    dom_stride = a.n;
+    dev_in = w.dev_in;
+    slots = reinterpret_cast<int*>(smem);
+  }
+  // the staged vectors are visible to the block, and every block of the
+  // cluster has started (so block 0's flags may be written)
+  cluster.sync();
+
+  // the source (a global index into the whole vectors), and what depends
+  // on it alone
+  const int js = blockIdx.y;
+  const long long src = a.src_order[js];
+  const bool avail = js < *a.n_avail;
+  const double u_s = a.util[src], used_s = a.used[src], cap_s = a.cap[src];
+  const double us = *a.us, usq = *a.usq, nf = *a.n_f;
+  const double neg_min = -*a.min_dvar;
+  const double mean = ddiv(us, nf);
+  const double old_var = dsub(ddiv(usq, nf), dmul(mean, mean));
+  const double usq_src = dmul(u_s, u_s);
+  int* w_act = slots + warp * 2 * S;
+  int* w_peer = w_act + S;
+
+  bool any_cand = false;
+  for (int r = blockIdx.x * kSelWarps + warp; r < R;
+       r += gridDim.x * kSelWarps) {
+    const long long at = static_cast<long long>(js) * R + r;
+    const long long row = a.rows_k[at];  // warp-uniform
+    const long long* rec = a.rec + at * kRecFields;
+    // a real row whose source-count criterion holds
+    const bool live = row >= 0 && a.src_ok[at] != 0;
+    bool found = false, row_cand = false;
+    double best = CUDART_INF;
+    int best_idx = lane < n ? lane : INT32_MAX;
+    if (live) {
+      const long long pool = rec[kRecPool], slot = rec[kRecSlot];
+      const long long sbase = rec[kRecSbase], scnt = rec[kRecScnt];
+      const long long cls = rec[kRecClass], level = rec[kRecLevel];
+      const double size = __longlong_as_double(rec[kRecSize]);
+      const Id* dom = dev_domain + level * dom_stride;
+      // the peers' domains, at global indices of the whole table
+      const long long* peer_dom = a.dev_domain + level * a.n;
+      __syncwarp();  // every lane is done with the previous row's slots
+      for (int j = lane; j < S; j += kWarp) {
+        const long long act = a.act_k[at * S + j];
+        const bool in_step = sbase <= j && sbase + scnt > j && slot != j;
+        w_act[j] = static_cast<int>(act);
+        // domain ids are >= 0; a padded slot clamps to device 0
+        w_peer[j] =
+            in_step ? static_cast<int>(peer_dom[act < 0 ? 0 : act]) : -1;
+      }
+      __syncwarp();
+      const SourceDelta sd = source_delta(used_s, cap_s, u_s, usq_src, size);
+      const uint8_t* crit = a.dst_ok + pool * n;
+      for (int i = lane; i < n; i += kWarp) {
+        const int d = base + i;
+        const double ud = util[i];
+        const double fill = dadd(used[i], size);
+        if (!(dev_in[i] && d != src && (ud < u_s || (ud == u_s && d < src)) &&
+              (cls < 0 || dev_class[i] == cls) && crit[i] &&
+              fill <= cap_lim[i]))
+          continue;
+        const int dom_d = static_cast<int>(dom[i]);
+        bool taken = false;
+        for (int j = 0; j < S; ++j)
+          taken |= (w_act[j] == d) | (w_peer[j] == dom_d);
+        if (taken) continue;
+        row_cand = true;
+        fold_if_variance_improves(i, ud, fill, cap[i], sd, us, usq, nf,
+                                  old_var, neg_min, found, best, best_idx);
+      }
+    }
+    any_cand |= row_cand;
+    const bool row_any = __any_sync(kFull, row_cand);
+    warp_fold_min(found, best, best_idx);
+    if (lane == 0) {
+      a.any_out[at] = found && avail ? 1 : 0;
+      a.dst_out[at] = base + best_idx;
+      if (a.cand_row) a.cand_row[at] = row_any ? 1 : 0;
+    }
+  }
+
+  const int block_any = __syncthreads_or(any_cand);
+  if (threadIdx.x == 0)
+    cluster.map_shared_rank(block_flags, 0)[cluster.block_rank()] = block_any;
+  cluster.sync();  // block 0 holds every flag; no block reads another after
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    int any = 0;
+    for (unsigned b = 0; b < cluster.num_blocks(); ++b) any |= block_flags[b];
+    a.cand_src[js] = any ? 1 : 0;
+  }
+}
+
 constexpr int kMaxDevices = 64;
 
-template <bool kStaged, bool kCached, bool kLanes = false>
-int launch_select_rows(const SelectRowsArgs& a, long long smem,
-                       cudaStream_t stream) {
-  // the dynamic shared memory each device already allows the kernel: the
-  // attribute is set when a launch needs more, not on every launch
-  static std::atomic<long long> allowed[kMaxDevices];
+// One launch of a selection kernel: one cluster of blocks per source (k
+// of them, a grid y-slice each), as many blocks as cover R rows at 8 a
+// block, one grid z-slice per lane.  ``allowed`` holds the dynamic shared
+// memory each device already allows ``kernel``: the attribute is set when
+// a launch needs more, not on every launch.
+template <typename Args>
+int launch_clusters(void (*kernel)(Args), std::atomic<long long>* allowed,
+                    const Args& a, long long k, long long R, long long lanes,
+                    long long smem, cudaStream_t stream) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices || smem > allowed[device].load()) {
-    err = cudaFuncSetAttribute(select_rows_kernel<kStaged, kCached, kLanes>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < kMaxDevices) allowed[device].store(smem);
   }
-  // one cluster per source, as many blocks as cover R rows at 8 a block
   const unsigned width = static_cast<unsigned>(
-      std::min<long long>(kMaxCluster, (a.R + kSelWarps - 1) / kSelWarps));
+      std::min<long long>(kMaxCluster, (R + kSelWarps - 1) / kSelWarps));
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = width;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(width, static_cast<unsigned>(a.k),
-                     static_cast<unsigned>(a.lanes));
+  cfg.gridDim = dim3(width, static_cast<unsigned>(k),
+                     static_cast<unsigned>(lanes));
   cfg.blockDim = dim3(kSelThreads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, select_rows_kernel<kStaged, kCached, kLanes>,
-                           a);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStaged, bool kCached, bool kLanes = false>
+int launch_select_rows(const SelectRowsArgs& a, long long smem,
+                       cudaStream_t stream) {
+  static std::atomic<long long> allowed[kMaxDevices];
+  return launch_clusters(select_rows_kernel<kStaged, kCached, kLanes>,
+                         allowed, a, a.k, a.R, a.lanes, smem, stream);
+}
+
+template <bool kStaged>
+int launch_select_rows_window(const SelectRowsWindowArgs& a, long long smem,
+                              cudaStream_t stream) {
+  static std::atomic<long long> allowed[kMaxDevices];
+  return launch_clusters(select_rows_window_kernel<kStaged>, allowed, a,
+                         a.k, a.R, 1, smem, stream);
+}
+
+// The bytes of shared memory a block of the current device may opt in
+// to, where ``smem_limit`` is negative; else ``smem_limit``.
+int smem_allowed(long long* smem_limit) {
+  if (*smem_limit >= 0) return 0;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem_limit = optin;
+  return 0;
 }
 
 }  // namespace
@@ -630,15 +893,7 @@ int select_rows(const SelectRowsArgs* a, long long smem_limit, void* stream) {
   if (cached && (a->hit_blk == nullptr || a->cache_out == nullptr ||
                  a->rb <= 0 || a->R % a->rb != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem_limit < 0) {
-    int device = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_limit = optin;
-  }
+  if (const int err = smem_allowed(&smem_limit)) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long staged = staged_bytes(a->n, a->L) + slot_bytes(a->S);
   const long long static_bytes = sizeof(int) * kMaxCluster;  // block_flags
@@ -650,6 +905,38 @@ int select_rows(const SelectRowsArgs* a, long long smem_limit, void* stream) {
   return a->lanes > 1 ? launch_select_rows<false, false, true>(*a, slots, s)
          : cached     ? launch_select_rows<false, true>(*a, slots, s)
                       : launch_select_rows<false, false>(*a, slots, s);
+}
+
+// The names of SelectRowsWindowArgs's fields in order, and its size.
+const char* select_rows_window_fields() {
+#define SELECT_ROWS_NAME(type, name) #name " "
+  return SELECT_ROWS_WINDOW_FIELDS(SELECT_ROWS_NAME);
+#undef SELECT_ROWS_NAME
+}
+
+long long select_rows_window_args_bytes() {
+  return sizeof(SelectRowsWindowArgs);
+}
+
+// One launch of the window form over ``a``: the window's vectors staged
+// in shared memory when they fit in ``smem_limit`` bytes (negative: the
+// most a block of the current device may opt in to), else read from
+// device memory.  k < 65536, R >= 1, 0 <= base, base + n_local <= n, and
+// R k indexable in int32.
+int select_rows_window(const SelectRowsWindowArgs* a, long long smem_limit,
+                       void* stream) {
+  if (a->k <= 0) return 0;
+  if (a->R <= 0 || a->k > 65535 || a->n <= 0 || a->n >= INT32_MAX ||
+      a->n_local <= 0 || a->base < 0 || a->base + a->n_local > a->n ||
+      a->P < 0 || a->R * a->k >= INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = smem_allowed(&smem_limit)) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long staged = staged_bytes(a->n_local, a->L) + slot_bytes(a->S);
+  const long long static_bytes = sizeof(int) * kMaxCluster;  // block_flags
+  if (staged + static_bytes <= smem_limit)
+    return launch_select_rows_window<true>(*a, staged, s);
+  return launch_select_rows_window<false>(*a, slot_bytes(a->S), s);
 }
 
 }  // extern "C"

@@ -14,21 +14,26 @@ Modes:
   reproducer, and exit 0 only if it was caught *and* shrank to at most
   ``--expect-max-events`` events — the proof the harness would catch a
   real regression of the same shape.  With ``--engines class`` it runs
-  the host lanes.  The card's ``select_rows`` compiles the predicates
-  into the kernel, where no mutation reaches, so ``--mutate`` with the
-  ``equilibrium_batch`` lane on a CUDA device is refused.
+  the host lanes.  The card's ``select_rows`` and its window form
+  compile the predicates into the kernel, where no mutation reaches, so
+  ``--mutate`` with the ``equilibrium_batch``, ``fleet`` or
+  ``equilibrium_batch_sharded`` lane on a CUDA device is refused.
 
 ``--device`` places the lanes that run on a device
-(``equilibrium_batch``, ``equilibrium_jax_legacy``): the CUDA card by
-default, which they need; ``--device cpu`` runs them on their kernels'
-plain versions.  The sharded-mesh subprocess lane of the JAX package's
-CLI (``--shard-subprocess``) waits for the port's sharded engine.
+(``equilibrium_batch``, ``equilibrium_batch_sharded``, ``fleet``,
+``equilibrium_jax_legacy``): the CUDA card by default, which they need;
+``--device cpu`` runs them on their kernels' plain versions.  In a sweep,
+``--shard-subprocess N`` also runs every Nth seed's timeline through the
+sharded lane split across ``--shard-devices`` ranks (default 2): a gloo
+group of spawned processes on the CPU, each rank's moves and metrics
+JSON held to the reference lane's.
 
 Examples::
 
     python -m repro_torch.fuzz --seeds 0:32
     python -m repro_torch.fuzz --seeds 0:8 --profile nightly
     python -m repro_torch.fuzz --device cpu --seeds 0:10
+    python -m repro_torch.fuzz --device cpu --seeds 0:10 --shard-subprocess 5
     python -m repro_torch.fuzz --replay tests/regressions/legacy-slack-divergence.json
     python -m repro_torch.fuzz --mutate variance_always_improves --shrink --device cpu
 """
@@ -43,9 +48,9 @@ import torch
 
 HOST_ENGINES = ("equilibrium", "equilibrium_faithful")
 
-#: the lanes whose selection runs in ``select_rows`` on a CUDA device,
-#: out of reach of a legality mutation
-KERNEL_LANES = ("equilibrium_batch", "fleet")
+#: the lanes whose selection runs in ``select_rows`` (or its window form)
+#: on a CUDA device, out of reach of a legality mutation
+KERNEL_LANES = ("equilibrium_batch", "equilibrium_batch_sharded", "fleet")
 
 
 def parse_seeds(spec: str) -> range:
@@ -78,6 +83,30 @@ def check_mutation_lanes(engines, device) -> None:
             f"repro_torch.core.legality does not reach, so the lane would "
             f"plan healthily and the run would report the kernel as an "
             f"agreement failure; use --engines host, or --device cpu")
+
+
+def shard_subprocess_check(tl, ref_lane, devices: int) -> None:
+    """Run the timeline's sharded lane split across ``devices`` ranks (a
+    gloo group of spawned processes on the CPU); raise
+    ``OracleFailure("agreement")`` where a rank fails or its moves or
+    metrics JSON differ from ``ref_lane``'s."""
+    from . import OracleFailure
+    from .harness import sharded_lane
+    from ..core.shard import spawn_ranks
+    try:
+        ranks = spawn_ranks(sharded_lane, devices, "gloo", (tl.to_dict(),))
+    except Exception as exc:
+        raise OracleFailure(
+            "agreement", f"sharded lane ({devices} ranks) failed: "
+            f"{exc}") from exc
+    for rank, (moves, metrics_json) in enumerate(ranks):
+        for what, got, want in (("moves", moves, ref_lane.moves),
+                                ("metrics JSON", metrics_json,
+                                 ref_lane.metrics_json)):
+            if got != want:
+                raise OracleFailure(
+                    "agreement", f"sharded lane ({devices} ranks), rank "
+                    f"{rank}: {what} differ from the reference lane's")
 
 
 def run_one(tl, engines, device, baselines=True):
@@ -149,13 +178,20 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--mutate", metavar="NAME",
                     help="mutation smoke: run under a broken legality "
                          "predicate and require the harness to catch it "
-                         "(not with the equilibrium_batch or fleet lane "
-                         "on CUDA)")
+                         "(not with the equilibrium_batch, "
+                         "equilibrium_batch_sharded or fleet lane on "
+                         "CUDA)")
     ap.add_argument("--expect-max-events", type=int, default=12,
                     help="mutation smoke: max events in the shrunk "
                          "reproducer")
     ap.add_argument("--max-evals", type=int, default=300,
                     help="shrinker predicate-evaluation budget")
+    ap.add_argument("--shard-subprocess", type=int, default=0, metavar="N",
+                    help="every Nth seed, also run the sharded lane split "
+                         "across --shard-devices spawned gloo ranks on the "
+                         "CPU (0 = off)")
+    ap.add_argument("--shard-devices", type=int, default=2,
+                    help="ranks of the sharded subprocess lane")
     return ap
 
 
@@ -212,8 +248,10 @@ def main(argv=None) -> int:
     for i, seed in enumerate(seeds):
         tl = generate_timeline(seed, args.profile)
         try:
-            run_one(tl, engines, args.device,
-                    baselines=not args.no_baselines)
+            ref = run_one(tl, engines, args.device,
+                          baselines=not args.no_baselines)
+            if args.shard_subprocess and i % args.shard_subprocess == 0:
+                shard_subprocess_check(tl, ref, args.shard_devices)
         except OracleFailure as exc:
             print(f"seed {seed}: {exc}")
             d = tl.to_dict()

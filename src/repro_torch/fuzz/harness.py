@@ -12,9 +12,11 @@ byte-identical metrics JSON), bounds warm-engine rebuilds, and replays
 the serialized timeline to prove seed ⇒ bytes.
 
 ``device`` reaches the lanes that run on one (``equilibrium_batch``,
-``equilibrium_jax_legacy``, ``fleet``): ``None`` is the CUDA card, and
-those lanes raise without one; ``"cpu"`` runs them on their kernels'
-plain versions.  The host lanes ignore it.
+``equilibrium_batch_sharded``, ``equilibrium_jax_legacy``, ``fleet``):
+``None`` is the CUDA card, and those lanes raise without one; ``"cpu"``
+runs them on their kernels' plain versions.  The host lanes ignore it.
+:func:`sharded_lane` is one rank's run of the sharded lane in a process
+group (the CLI's ``--shard-subprocess``).
 """
 
 from __future__ import annotations
@@ -185,6 +187,18 @@ def run_lane(tl: GeneratedTimeline, engine: str,
     return run_lifecycle(state, events, cfg, engine,
                          equivalence_checks=equivalence_checks,
                          device=device)
+
+
+def sharded_lane(timeline: dict) -> tuple[list, str]:
+    """One rank's run of a serialized timeline through the sharded lane
+    on the CPU, one torch thread a rank (the fuzz CLI's
+    ``--shard-subprocess``, in each rank of a ``spawn_ranks`` group):
+    (its moves, its metrics JSON)."""
+    import torch
+    torch.set_num_threads(1)
+    lane = run_lane(timeline_from_dict(timeline),
+                    "equilibrium_batch_sharded", device="cpu")
+    return lane.moves, lane.metrics_json
 
 
 def run_timeline(tl: GeneratedTimeline, engines: tuple[str, ...] | None = None,

@@ -8,8 +8,9 @@ failed build or launch.
 
 * K1 :func:`select_rows` — the batched planner step's selection, every
   criterion and the reduction in one launch (:func:`bind_select_rows`
-  binds it to a carry once, or to a bucket of stacked carries) — and
-  :func:`masked_select`,
+  binds it to a carry once, or to a bucket of stacked carries;
+  :func:`bind_select_rows_window` to one rank's window of the sharded
+  engine's carry) — and :func:`masked_select`,
   the reduction alone over a legality mask;
 * K2 :func:`flash_attention` — attention forward (model layout);
 * K3 :func:`ssd_scan` — the Mamba-2 SSD chunked scan (model layout).
@@ -21,8 +22,9 @@ import torch
 
 from .flash_attention import flash_attention_fwd
 from .ref import (flash_attention_online, masked_select_ref,
-                  select_rows_lanes_ref, select_rows_ref, ssd_chunked)
-from .select_move import SelectRows, masked_select_fwd
+                  select_rows_lanes_ref, select_rows_ref,
+                  select_rows_window_ref, ssd_chunked)
+from .select_move import SelectRows, SelectRowsWindow, masked_select_fwd
 from .ssd_scan import ssd_scan_fwd
 
 
@@ -58,6 +60,21 @@ def bind_select_rows(cap_lim: torch.Tensor, dyn: dict, const: dict,
         return lambda src_order, n_avail, **cache: plain(
             src_order, n_avail, cap_lim, dyn, const, scal, **cache)
     return SelectRows(cap_lim, dyn, const, scal, lanes=lanes)
+
+
+def bind_select_rows_window(cap_lim: torch.Tensor, dyn: dict, const: dict,
+                            scal: dict, base: int):
+    """The sharded engine's selection over one rank's window of the
+    destination axis, bound to the rank's carry: a callable
+    ``(src_order, n_avail, rows_k, rec, act_k, src_ok, cand_row=False) →
+    (any, dst, cand_src[, cand_row])`` with global ``dst``
+    (:func:`.ref.select_rows_window_ref` says what each holds).  On a
+    carry on the CPU it runs the plain version, on one on a card it
+    launches the kernel (:class:`.select_move.SelectRowsWindow`)."""
+    if _on_cpu(cap_lim, dyn["util"]):
+        return lambda *step, **kw: select_rows_window_ref(
+            *step, cap_lim, dyn, const, scal, base=base, **kw)
+    return SelectRowsWindow(cap_lim, dyn, const, scal, base)
 
 
 def select_rows(src_order: torch.Tensor, n_avail: torch.Tensor,

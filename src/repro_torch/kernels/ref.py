@@ -2,10 +2,11 @@
 
 What :mod:`.ops` runs on CPU tensors: K1 ``select_rows_ref`` (the
 planner step's selection over ``select_rows_masks``, ending in
-``masked_select_ref``), its lane form ``select_rows_lanes_ref`` and
-``masked_select_ref``, K2 ``flash_attention_online`` (online softmax over KV blocks) and K3
-``ssd_chunked`` (the chunk loop), the same schedules as the reference
-model's own code.
+``masked_select_ref``), its lane form ``select_rows_lanes_ref``, its
+window form ``select_rows_window_ref`` (the sharded engine's) and
+``masked_select_ref``, K2 ``flash_attention_online`` (online softmax
+over KV blocks) and K3 ``ssd_chunked`` (the chunk loop), the same
+schedules as the reference model's own code.
 
 What the tests and ``chip_smoke.py`` hold the kernels to: K2
 ``flash_attention_ref`` (one full softmax) and K3 ``ssd_scan_ref`` (the
@@ -43,6 +44,73 @@ def masked_select_ref(valid: torch.Tensor, util: torch.Tensor
     return valid.any(dim=1), dst.to(torch.int32)
 
 
+#: the per-row registry arrays of the carry's ``const``, in the column
+#: order of a packed record (:func:`pack_records`; ``sh_size`` last, as
+#: its float64 bit pattern)
+SH_FIELDS = ("sh_pg", "sh_pool", "sh_class", "sh_level", "sh_slot",
+             "sh_sbase", "sh_scnt", "sh_size")
+
+
+def pack_records(const: dict) -> torch.Tensor:
+    """The eight registry arrays of ``const`` as one (rows, 8) int64
+    tensor in :data:`SH_FIELDS` order, ``sh_size`` as its bit pattern."""
+    cols = [const[f] for f in SH_FIELDS[:-1]]
+    cols.append(const["sh_size"].view(torch.int64))
+    return torch.stack(cols, dim=-1)
+
+
+def unpack_records(rec: torch.Tensor) -> dict[str, torch.Tensor]:
+    """A packed (..., 8) record tensor (:func:`pack_records`) as the dict
+    of its :data:`SH_FIELDS` columns, ``sh_size`` float64 again."""
+    out = {f: rec[..., i] for i, f in enumerate(SH_FIELDS[:-1])}
+    out["sh_size"] = rec[..., -1].contiguous().view(torch.float64)
+    return out
+
+
+def _row_masks(src: torch.Tensor, rows: torch.Tensor, live: torch.Tensor,
+               rec: dict, acting_t: torch.Tensor, crit: torch.Tensor,
+               cap_lim: torch.Tensor, dyn: dict, const: dict,
+               iota: torch.Tensor, at) -> dict[str, torch.Tensor]:
+    """``pre`` and ``cand`` (k, R, m) of :func:`candidate_masks` over the
+    devices ``iota`` (m,) (global ids; ``at(t)`` picks their columns of an
+    (n,)-wide tensor) from the row side as given: ``live`` (k, R), the
+    rows' records ``rec`` (:data:`SH_FIELDS` to (k, R) tensors), their
+    PGs' acting sets ``acting_t`` (k, R, S) and the destination-count
+    criterion at their pools ``crit`` (k, R, m)."""
+    from ..core import legality
+    d, c = dyn, const
+    used, util = d["used"], d["util"]
+    size = torch.where(rows >= 0, rec["sh_size"], 0.0)        # (k, R) f64
+    lvl, slot = rec["sh_level"], rec["sh_slot"]
+    sbase, scnt = rec["sh_sbase"], rec["sh_scnt"]
+
+    # every criterion but the slots' and the variance test
+    src_cc = src[:, None, None]                                # (k, 1, 1)
+    u_s = util[src][:, None, None]
+    pre = (live[..., None] & at(c["dev_in"]) & (iota != src_cc)
+           & legality.before_source(at(util), u_s, iota, src_cc)
+           & legality.class_ok(rec["sh_class"][..., None],
+                               at(c["dev_class"]))
+           & crit
+           & legality.capacity_ok(at(used), at(cap_lim), size[..., None]))
+
+    # not a member, failure domain free: from the acting table, all S
+    # slots of each row's PG at once (the reference loops over the slots;
+    # one (k, R, S, m) compare per test is the same OR).  Padded slots are
+    # -1: never a member, never a peer.
+    j = torch.arange(acting_t.shape[2], device=iota.device)
+    lo, n_in = sbase[..., None], scnt[..., None]
+    in_step = (lo <= j) & (lo + n_in > j) & (slot[..., None] != j)
+    peer = torch.where(in_step, c["dev_domain"][lvl[..., None],
+                                                acting_t.clamp(min=0)],
+                       -1)                     # domain ids are >= 0
+    member = (acting_t[..., None] == iota).any(dim=2)          # (k, R, m)
+    dom = at(c["dev_domain"])[lvl]                             # (k, R, m)
+    clash = (dom[:, :, None, :] == peer[..., None]).any(dim=2)
+    return {"live": live, "pre": pre, "cand": pre & ~(member | clash),
+            "size": size}
+
+
 def candidate_masks(src: torch.Tensor, rows: torch.Tensor,
                     cap_lim: torch.Tensor, dyn: dict, const: dict,
                     scal: dict, devs: torch.Tensor | None = None
@@ -61,52 +129,37 @@ def candidate_masks(src: torch.Tensor, rows: torch.Tensor,
     # module: bind it at the first call
     from ..core import legality
     d, c, s = dyn, const, scal
-    used, util = d["used"], d["util"]
     if devs is None:
-        iota = torch.arange(used.shape[0], device=used.device)
+        iota = torch.arange(d["used"].shape[0], device=d["used"].device)
         at = (lambda t: t)
     else:
         iota = devs
         at = (lambda t: t[..., devs])
-    real = rows >= 0
     r = rows.clamp(min=0)               # -1 padding gathers row 0, masked
-    pg, lvl, slot = c["sh_pg"][r], c["sh_level"][r], c["sh_slot"][r]
-    sbase, scnt = c["sh_sbase"][r], c["sh_scnt"][r]
-    pool = c["sh_pool"][r]
-    size = torch.where(real, c["sh_size"][r], 0.0)             # (k, R) f64
-
-    # every criterion but the slots' and the variance test
+    rec = {f: c[f][r] for f in SH_FIELDS}
+    pool = rec["sh_pool"]
     src_c = src[:, None]                                       # (k, 1)
-    src_cc = src[:, None, None]                                # (k, 1, 1)
-    live = real & legality.src_count_ok(d["pool_counts"][pool, src_c],
-                                        c["ideal"][pool, src_c], s["slack"])
-    u_s = util[src][:, None, None]
+    live = (rows >= 0) & legality.src_count_ok(
+        d["pool_counts"][pool, src_c], c["ideal"][pool, src_c], s["slack"])
     crit = (d["dst_ok"][pool] if devs is None
             else d["dst_ok"][pool[..., None], devs])
-    pre = (live[..., None] & at(c["dev_in"]) & (iota != src_cc)
-           & legality.before_source(at(util), u_s, iota, src_cc)
-           & legality.class_ok(c["sh_class"][r][..., None],
-                               at(c["dev_class"]))
-           & crit
-           & legality.capacity_ok(at(used), at(cap_lim), size[..., None]))
+    return _row_masks(src, rows, live, rec, d["acting"][rec["sh_pg"]], crit,
+                      cap_lim, dyn, const, iota, at)
 
-    # not a member, failure domain free: from the acting table, all S
-    # slots of each row's PG at once (the reference loops over the slots;
-    # one (k, R, S, m) compare per test is the same OR).  Padded slots are
-    # -1: never a member, never a peer.
-    acting_t = d["acting"][pg]                                 # (k, R, S)
-    j = torch.arange(acting_t.shape[2], device=iota.device)
-    lo, n_in = sbase[..., None], scnt[..., None]
-    in_step = (lo <= j) & (lo + n_in > j) & (slot[..., None] != j)
-    peer = torch.where(in_step, c["dev_domain"][lvl[..., None],
-                                                acting_t.clamp(min=0)],
-                       -1)                     # domain ids are >= 0
-    member = (acting_t[..., None] == iota).any(dim=2)          # (k, R, m)
-    dom = (c["dev_domain"][lvl] if devs is None
-           else c["dev_domain"][lvl[..., None], devs])         # (k, R, m)
-    clash = (dom[:, :, None, :] == peer[..., None]).any(dim=2)
-    return {"live": live, "pre": pre, "cand": pre & ~(member | clash),
-            "size": size}
+
+def _variance_ok(src_order: torch.Tensor, size: torch.Tensor, dyn: dict,
+                 const: dict, scal: dict, at) -> torch.Tensor:
+    """The exact variance acceptance (float64, reference operand order)
+    of moving each row of ``size`` (k, R) off its source onto each device
+    that ``at`` picks: (k, R, m)."""
+    from ..core import legality
+    d, c, s = dyn, const, scal
+    used, util = d["used"], d["util"]
+    return legality.variance_improves(
+        used[src_order][:, None, None], at(used),
+        c["cap"][src_order][:, None, None], at(c["cap"]),
+        util[src_order][:, None, None], at(util), size[..., None],
+        d["us"], d["usq"], s["n_f"], s["min_dvar"])
 
 
 def select_rows_masks(src_order: torch.Tensor, n_avail: torch.Tensor,
@@ -127,11 +180,8 @@ def select_rows_masks(src_order: torch.Tensor, n_avail: torch.Tensor,
     block is read from ``cache_ok``, and every other row's fresh one is
     written into ``cache_out`` (default ``cache_ok``), in place; the
     variance test runs on ``cand`` as read."""
-    from ..core import legality
-    d, c, s = dyn, const, scal
-    used, util = d["used"], d["util"]
     k = src_order.shape[0]
-    m = candidate_masks(src_order, d["rows_on"][src_order], cap_lim, dyn,
+    m = candidate_masks(src_order, dyn["rows_on"][src_order], cap_lim, dyn,
                         const, scal)
     if cache_ok is not None:
         hit = hit_blk.repeat_interleave(rb, dim=1)[..., None]  # (k, R, 1)
@@ -140,14 +190,9 @@ def select_rows_masks(src_order: torch.Tensor, n_avail: torch.Tensor,
         m["cand"] = torch.where(hit, cache_ok, fresh)
         out.copy_(torch.where(hit, out, fresh))
 
-    # exact variance acceptance (float64, reference operand order)
-    var_ok = legality.variance_improves(
-        used[src_order][:, None, None], used,
-        c["cap"][src_order][:, None, None], c["cap"],
-        util[src_order][:, None, None], util, m["size"][..., None],
-        d["us"], d["usq"], s["n_f"], s["min_dvar"])
-    m["valid"] = m["cand"] & var_ok
-    m["avail"] = torch.arange(k, device=used.device) < n_avail
+    m["valid"] = m["cand"] & _variance_ok(src_order, m["size"], dyn, const,
+                                          scal, lambda t: t)
+    m["avail"] = torch.arange(k, device=src_order.device) < n_avail
     return m
 
 
@@ -189,6 +234,57 @@ def select_rows_ref(src_order: torch.Tensor, n_avail: torch.Tensor,
     any_row = (any_row.view(k, r_cap) & m["avail"][:, None]).view(-1)
     per_row = m["cand"].any(dim=2)
     out = (any_row, dst, per_row.any(dim=1))
+    return (*out, per_row) if cand_row else out
+
+
+def select_rows_window_ref(src_order: torch.Tensor, n_avail: torch.Tensor,
+                           rows_k: torch.Tensor, rec: torch.Tensor,
+                           act_k: torch.Tensor, src_ok: torch.Tensor,
+                           cap_lim: torch.Tensor, dyn: dict, const: dict,
+                           scal: dict, *, base: int,
+                           cand_row: bool = False
+                           ) -> tuple[torch.Tensor, ...]:
+    """:func:`select_rows_ref` restricted to one rank's window of the
+    destination axis, the global devices ``[base, base + n_local)``: the
+    plain version of K1's window form
+    (:class:`repro_torch.kernels.select_move.SelectRowsWindow`), which the
+    sharded engine (:mod:`repro_torch.core.shard`) launches once a step on
+    each rank.
+
+    Destination-side data comes from the rank's own block, ``dyn["dst_ok"]``
+    (P, n_local), and from the replicated (n,) vectors ``used``, ``util``
+    (``dyn``), ``cap``, ``dev_class``, ``dev_in``, ``dev_domain`` (L, n)
+    (``const``) and ``cap_lim``; ``dyn["us"]``, ``dyn["usq"]`` and
+    ``scal["n_f"]``, ``scal["min_dvar"]`` are the variance test's.  Source-
+    and row-side data comes from what the engine gathered for the step
+    from the ranks that own it: the k sources ``src_order`` (global ids,
+    the first ``n_avail`` available), their rows ``rows_k`` (k, R) (-1
+    padded), those rows' packed records ``rec`` (k, R, 8)
+    (:func:`pack_records`' columns), their PGs' acting sets ``act_k``
+    (k, R, S) and the source-count criterion at each row's pool
+    ``src_ok`` (k, R).  Returns what :func:`select_rows_ref` returns for
+    the window alone: ``any`` (k · R,), ``dst`` (k · R,) int32 — a global
+    index, ``base`` where the row has no legal destination in the window
+    — ``cand_src`` (k,) and, with ``cand_row``, ``cand_row`` (k, R)."""
+    n_local = dyn["dst_ok"].shape[1]
+    k, R = rows_k.shape
+    iota = base + torch.arange(n_local, device=rows_k.device)
+
+    def at(t):
+        return t[..., base:base + n_local]
+
+    fields = unpack_records(rec)
+    crit = dyn["dst_ok"][fields["sh_pool"]]                  # (k, R, m)
+    m = _row_masks(src_order, rows_k, (rows_k >= 0) & src_ok, fields, act_k,
+                   crit, cap_lim, dyn, const, iota, at)
+    valid = m["cand"] & _variance_ok(src_order, m["size"], dyn, const, scal,
+                                     at)
+    any_row, dst = masked_select_ref(valid.view(k * R, n_local),
+                                     at(dyn["util"]))
+    avail = torch.arange(k, device=rows_k.device) < n_avail
+    any_row = (any_row.view(k, R) & avail[:, None]).view(-1)
+    per_row = m["cand"].any(dim=2)
+    out = (any_row, (dst + base).to(torch.int32), per_row.any(dim=1))
     return (*out, per_row) if cand_row else out
 
 

@@ -16,6 +16,12 @@ masked_select_fwd``; the kernels' source notes their bound and design.
   engine's legality cache it launches the cached instantiation, which
   reads the candidate masks of the cache's hit blocks and writes the
   others'.  Plain version: :func:`repro_torch.kernels.ref.select_rows_ref`.
+* :class:`SelectRowsWindow` — the same selection over one rank's window
+  of the destination axis, the sharded engine's
+  (:mod:`repro_torch.core.shard`): the source and row side comes from
+  tensors the engine gathered for the step, the destination side from
+  the rank's block and the device vectors every rank holds.  Plain
+  version: :func:`repro_torch.kernels.ref.select_rows_window_ref`.
 * :func:`masked_select_fwd` — the reduction alone over a mask in device
   memory, the counterpart of the JAX package's public function.  Plain
   version: :func:`repro_torch.kernels.ref.masked_select_ref`.
@@ -32,7 +38,7 @@ import ctypes
 
 import torch
 
-VARIANTS = ("select_rows", "masked_select")
+VARIANTS = ("select_rows", "masked_select", "select_rows_window")
 
 _launches = dict.fromkeys(VARIANTS, 0)
 #: the ``select_rows`` launches (counted there too) that read a legality
@@ -388,6 +394,160 @@ class SelectRows:
         a.cache_ok = a.hit_blk = a.cache_out = None
         a.rb = 0
         self._launch()
+        out = (any_out, dst_out, cand_src)
+        return (*out, rows) if cand_row else out
+
+
+# (dict, dtype) of every carry tensor the window form reads, by its
+# field name in SelectRowsWindowArgs; dst_ok is the rank's block
+_WINDOW_CARRY = {"dst_ok": ("dyn", torch.bool),
+                 "used": ("dyn", torch.float64),
+                 "util": ("dyn", torch.float64),
+                 "cap": ("const", torch.float64),
+                 "cap_lim": (None, torch.float64),
+                 "dev_class": ("const", torch.int64),
+                 "dev_in": ("const", torch.bool),
+                 "dev_domain": ("const", torch.int64),
+                 "us": ("dyn", torch.float64), "usq": ("dyn", torch.float64),
+                 "n_f": ("scal", torch.float64),
+                 "min_dvar": ("scal", torch.float64)}
+#: the step's own tensors, set per launch, and their dtypes
+_WINDOW_STEP = {"src_order": torch.int64, "n_avail": torch.int64,
+                "rows_k": torch.int64, "rec": torch.int64,
+                "act_k": torch.int64, "src_ok": torch.bool}
+_WINDOW_SIZES = ("k", "R", "n", "S", "L", "P", "base", "n_local")
+#: columns of a packed record (``ref.SH_FIELDS``)
+_REC_FIELDS = 8
+_window_args_type = None
+
+
+def _select_rows_window_kernel():
+    """The C entry ``select_rows_window`` and a ctypes copy of its
+    argument struct, built as :func:`_select_rows_kernel` builds
+    ``select_rows``'."""
+    global _window_args_type
+    from .build import load
+    lib = load("masked_select")
+    fn = lib.select_rows_window
+    if _window_args_type is None:
+        lib.select_rows_window_fields.restype = ctypes.c_char_p
+        lib.select_rows_window_args_bytes.restype = ctypes.c_longlong
+        names = lib.select_rows_window_fields().decode().split()
+        if sorted(names) != sorted((*_WINDOW_STEP, *_WINDOW_CARRY, *_OUT,
+                                    *_WINDOW_SIZES)):
+            raise RuntimeError(f"select_rows_window: the library's fields "
+                               f"{names} are not the wrapper's")
+
+        class Args(ctypes.Structure):
+            _fields_ = [(name, ctypes.c_longlong if name in _WINDOW_SIZES
+                         else ctypes.c_void_p) for name in names]
+
+        if ctypes.sizeof(Args) != lib.select_rows_window_args_bytes():
+            raise RuntimeError("select_rows_window: the argument struct's "
+                               "size differs from the library's")
+        fn.argtypes = [ctypes.POINTER(Args), ctypes.c_longlong,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _window_args_type = Args
+    return fn, _window_args_type
+
+
+class SelectRowsWindow:
+    """K1's window form bound to one rank's carry (``cap_lim``, ``dyn``,
+    ``const``, ``scal`` of :class:`repro_torch.core.shard._ShardChunk`):
+    the (n,) device vectors whole, ``dyn["dst_ok"]`` the rank's block
+    (P, n_local) of the devices from ``base`` on.  Each call launches on
+    the step's gathered tensors; a call that finds a tensor of the carry
+    replaced checks and packs the carry again.  ``smem_limit`` as
+    :class:`SelectRows`'.  There is no legality cache and no lane axis.
+    Raises on anything the kernel cannot take and never falls back to the
+    plain version or to the unwindowed kernel."""
+
+    def __init__(self, cap_lim: torch.Tensor, dyn: dict, const: dict,
+                 scal: dict, base: int, smem_limit: int | None = None):
+        self._dicts = {None: {"cap_lim": cap_lim}, "dyn": dyn,
+                       "const": const, "scal": scal}
+        self._base = base
+        self._smem_limit = -1 if smem_limit is None else smem_limit
+        self._bind()
+
+    def _carry(self) -> list[torch.Tensor]:
+        return [self._dicts[where][key]
+                for key, (where, _) in _WINDOW_CARRY.items()]
+
+    def _bind(self) -> None:
+        held = self._carry()
+        dev = held[0].device
+        for key, t in zip(_WINDOW_CARRY, held):
+            _on_card(key, t, _WINDOW_CARRY[key][1], dev)
+        t = dict(zip(_WINDOW_CARRY, held))
+        n, (P, n_local) = t["used"].shape[0], t["dst_ok"].shape
+        L = t["dev_domain"].shape[0]
+        wide = [key for key in ("used", "util", "cap", "cap_lim",
+                                "dev_class", "dev_in")
+                if tuple(t[key].shape) != (n,)]
+        if wide or t["dev_domain"].shape[1] != n or n_local < 1 \
+                or not 0 <= self._base <= n - n_local:
+            raise ValueError(f"select_rows_window: bad shapes: n {n}, "
+                             f"window [{self._base}, {self._base} + "
+                             f"{n_local}), dev_domain "
+                             f"{tuple(t['dev_domain'].shape)}, not (n,): "
+                             f"{wide}")
+        self._fn, args_type = _select_rows_window_kernel()
+        self._held, self._dev = held, dev
+        self._args = args_type(**{key: v.data_ptr() for key, v in t.items()},
+                               n=n, L=L, P=P, base=self._base,
+                               n_local=n_local)
+
+    def __call__(self, src_order: torch.Tensor, n_avail: torch.Tensor,
+                 rows_k: torch.Tensor, rec: torch.Tensor,
+                 act_k: torch.Tensor, src_ok: torch.Tensor, *,
+                 cand_row: bool = False) -> tuple[torch.Tensor, ...]:
+        """(any (k · R,) bool, dst (k · R,) int32 global, cand_src (k,)
+        bool, and with ``cand_row`` cand_row (k, R) bool): the outputs of
+        :func:`repro_torch.kernels.ref.select_rows_window_ref` on the same
+        arguments."""
+        if any(a is not b for a, b in zip(self._carry(), self._held)):
+            self._bind()
+        dev = self._dev
+        step = {"src_order": src_order, "n_avail": n_avail,
+                "rows_k": rows_k, "rec": rec, "act_k": act_k,
+                "src_ok": src_ok}
+        for key, t in step.items():
+            _on_card(key, t, _WINDOW_STEP[key], dev)
+        k = src_order.shape[0]
+        R = rows_k.shape[-1]
+        S = act_k.shape[-1]
+        if src_order.dim() != 1 or n_avail.numel() != 1 \
+                or tuple(rows_k.shape) != (k, R) \
+                or tuple(rec.shape) != (k, R, _REC_FIELDS) \
+                or tuple(act_k.shape) != (k, R, S) \
+                or tuple(src_ok.shape) != (k, R) or R < 1 \
+                or k >= 2 ** 16 or k * R >= 2 ** 31:
+            raise ValueError(
+                f"select_rows_window: bad shapes: src_order "
+                f"{tuple(src_order.shape)}, n_avail {tuple(n_avail.shape)}, "
+                f"rows_k {tuple(rows_k.shape)}, rec {tuple(rec.shape)}, "
+                f"act_k {tuple(act_k.shape)}, src_ok {tuple(src_ok.shape)}")
+        any_out = torch.empty(k * R, dtype=torch.bool, device=dev)
+        dst_out = torch.empty(k * R, dtype=torch.int32, device=dev)
+        cand_src = torch.empty(k, dtype=torch.bool, device=dev)
+        rows = (torch.empty((k, R), dtype=torch.bool, device=dev)
+                if cand_row else None)
+        a = self._args         # the launch copies it: reuse is safe
+        for key, t in step.items():
+            setattr(a, key, t.data_ptr())
+        a.any_out, a.dst_out = any_out.data_ptr(), dst_out.data_ptr()
+        a.cand_src = cand_src.data_ptr()
+        a.cand_row = rows.data_ptr() if cand_row else None
+        a.k, a.R, a.S = k, R, S
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = self._fn(ctypes.byref(a), self._smem_limit, stream)
+        if rc != 0:
+            raise RuntimeError(f"select_rows_window kernel launch failed: "
+                               f"CUDA error {rc}")
+        _launches["select_rows_window"] += 1
         out = (any_out, dst_out, cand_src)
         return (*out, rows) if cand_row else out
 

@@ -176,3 +176,52 @@ def engine_cache(cluster: str, steps: int, legal_hit: bool = False,
             return args, dict(cache_ok=d["c_ok"].clone(), hit_blk=hit_blk,
                               rb=step.rb)
     raise AssertionError(f"{cluster}: no such step in {steps}")
+
+
+def window_args(args: tuple, ways: int, rank: int) -> tuple[tuple, int]:
+    """(the arguments of K1's window form for window ``rank`` of ``ways``
+    of a carry, its base): the carry ``args`` (``select_rows``') split as
+    the sharded engine splits it (``shard.partition_carry``, the device
+    axis padded to a multiple of ``ways``), and the step's gathered
+    tensors taken from the whole carry — the sources' rows, their packed
+    records, their PGs' acting sets and the source-count criterion."""
+    from repro_torch.core import legality
+    from repro_torch.core.shard import partition_carry
+    from repro_torch.kernels.ref import pack_records
+    src_order, n_avail, _, dyn, const, scal = args
+    rows_k = dyn["rows_on"][src_order]
+    rec = pack_records(const)[rows_k.clamp(min=0)]
+    act_k = dyn["acting"][rec[..., 0]]
+    pool, src = rec[..., 1], src_order[:, None]
+    src_ok = legality.src_count_ok(dyn["pool_counts"][pool, src],
+                                   const["ideal"][pool, src], scal["slack"])
+    n = const["cap"].shape[0]
+    width = -(-n // ways) * ways
+    dyn_w, const_w, _ = partition_carry(dyn, const, ways, rank, width)
+    cap_lim = legality.capacity_limit(const_w["cap"], scal["headroom"])
+    base = rank * (width // ways)
+    return (src_order, n_avail, rows_k, rec, act_k.contiguous(), src_ok,
+            cap_lim, dyn_w, const_w, scal), base
+
+
+def fold_windows(outs: list[tuple], avail: torch.Tensor) -> tuple:
+    """The windows' (any, dst, cand_src) folded in ascending window order
+    as the sharded engine folds its ranks' (the legality core's
+    ``shard_winner_better`` on (any, util at dst, dst)), then ``any``
+    masked by the (k,) available positions: ``outs[i]`` is (any, dst,
+    cand_src, util) of window i launched with every position available,
+    ``util`` the padded carry's."""
+    from repro_torch.core import legality
+    any_row, dst, cand_src, util = outs[0]
+    dst = dst.to(torch.int64)
+    usel = util[dst]
+    for a, d, c, _ in outs[1:]:
+        d = d.to(torch.int64)
+        better = legality.shard_winner_better(a, util[d], d, any_row, usel,
+                                              dst)
+        usel = torch.where(better, util[d], usel)
+        dst = torch.where(better, d, dst)
+        any_row = any_row | a
+        cand_src = cand_src | c
+    any_row = (any_row.view(avail.shape[0], -1) & avail[:, None]).view(-1)
+    return any_row, dst.to(torch.int32), cand_src

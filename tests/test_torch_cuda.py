@@ -34,7 +34,11 @@ staged and from device memory, a one-lane launch the launch without the
 lane axis, and a cached launch of stacked lanes raises; the fleet on the
 card equals serial planners on the card lane by lane.  The dense legacy lane on the
 card equals the faithful planner, with the standalone ``masked_select``
-launched once per evaluated source."""
+launched once per evaluated source.  K1's window form (the sharded
+engine's) equals ``select_rows_window_ref`` bitwise on 2- and 4-way
+windows of the carries, staged and from device memory, and the sharded
+engine in an NCCL group of one rank equals the serial engine on the card
+on the small paper clusters."""
 
 import numpy as np
 import pytest
@@ -593,7 +597,7 @@ def test_batch_optins_on_card_match_cpu(card, cluster, pipeline):
     assert runs["cuda"] == runs["cpu"]
     assert runs["cuda"]["cache_hits"] > 0
     assert launches == {"select_rows": 8 * runs["cuda"]["chunks"],
-                        "masked_select": 0}
+                        "masked_select": 0, "select_rows_window": 0}
     assert select_move.cached_launch_count() == launches["select_rows"]
 
 
@@ -671,7 +675,7 @@ def test_warm_continuation_on_card_matches_cold(card, name, first_budget):
     assert warm.stats["rebuilds"] == (name == "renumbering-class")
     assert d.get("absorb.runs", 0) == (name != "renumbering-class")
     assert launches == {"select_rows": 5 * int(d.get("batch.chunks", 0)),
-                        "masked_select": 0}
+                        "masked_select": 0, "select_rows_window": 0}
     state.check_valid()
 
 
@@ -704,27 +708,31 @@ def test_legacy_lane_on_card_matches_faithful(card, cluster, slack):
         == [r.sources_tried for r in ref.records]
     n = got.stats["host_syncs"]
     assert n >= len(got.moves)
-    assert launches == {"select_rows": 0, "masked_select": n}
+    assert launches == {"select_rows": 0, "masked_select": n,
+                        "select_rows_window": 0}
 
 
 def test_fuzz_timeline_on_card_passes_every_oracle(card):
     """One generated timeline through the port's whole ``"equilibrium"``
     class with the device left at its default, the card: the batch lane's
-    ``select_rows`` once a step and the legacy lane's ``masked_select``
-    once per evaluated source, every oracle passing (legality, variance,
-    conservation, agreement, at most one rebuild, the baselines and the
-    replay)."""
+    ``select_rows`` once a step, the sharded lane's window form once a
+    step and the legacy lane's ``masked_select`` once per evaluated
+    source, every oracle passing (legality, variance, conservation,
+    agreement, at most one rebuild, the baselines and the replay)."""
     from repro_torch import fuzz
     from repro_torch.sim import generate_timeline
     select_move.reset_launch_count()
     lanes = fuzz.run_timeline(generate_timeline(0))
     launches = select_move.launch_counts()
     assert set(lanes) == {"equilibrium", "equilibrium_batch",
+                          "equilibrium_batch_sharded",
                           "equilibrium_faithful", "equilibrium_jax_legacy",
                           "fleet", "mgr", "none"}
     assert lanes["equilibrium"].planned_moves > 0
     assert lanes["equilibrium_batch"].rebuilds == 1
+    assert lanes["equilibrium_batch_sharded"].rebuilds == 1
     assert launches["select_rows"] > 0 and launches["masked_select"] > 0
+    assert launches["select_rows_window"] > 0
 
 
 def test_fuzz_slack_regression_through_the_card_legacy_lane(card):
@@ -896,3 +904,104 @@ def test_fleet_on_card_matches_serial_on_card(card):
         step.run(8, mask)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------------------
+# K1's window form and the sharded engine
+
+
+@pytest.mark.parametrize("smem_limit", [None, 0], ids=["staged", "device"])
+@pytest.mark.parametrize("ways", [2, 4])
+def test_k1_window_matches_plain(card, ways, smem_limit):
+    """K1's window form on the card equals ``select_rows_window_ref``
+    bitwise (any, global dst, cand_src, cand_row), staged and from device
+    memory, on every window of every carry: one launch a window."""
+    from _select_rows_carries import window_args
+    from repro_torch.kernels.ref import select_rows_window_ref
+    for case in CARRIES:
+        args = carry(*case)
+        for rank in range(ways):
+            wargs, base = window_args(args, ways, rank)
+            wargs = to_device(wargs, card)
+            bound = select_move.SelectRowsWindow(*wargs[6:], base,
+                                                 smem_limit=smem_limit)
+            before = select_move.launch_counts()["select_rows_window"]
+            got = bound(*wargs[:6], cand_row=True)
+            assert select_move.launch_counts()["select_rows_window"] \
+                == before + 1
+            want = select_rows_window_ref(*wargs, base=base, cand_row=True)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("any", "dst", "cand_src", "cand_row"),
+                                  got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w), \
+                    (carry_id(case), rank, name)
+
+
+def test_k1_window_raises(card):
+    """A window the kernel cannot take raises and launches nothing."""
+    from _select_rows_carries import window_args
+    wargs, base = window_args(carry("cluster_a", 0, True, False), 2, 1)
+    wargs = to_device(wargs, card)
+    before = select_move.launch_count()
+    with pytest.raises(ValueError, match="window"):
+        select_move.SelectRowsWindow(*wargs[6:], base + 1)
+    bound = select_move.SelectRowsWindow(*wargs[6:], base)
+    with pytest.raises(ValueError, match="bad shapes"):
+        bound(*wargs[:3], wargs[3][..., :7].contiguous(), *wargs[4:6])
+    with pytest.raises(ValueError, match="CUDA device"):
+        bound(wargs[0].cpu(), *wargs[1:6])
+    assert select_move.launch_count() == before
+
+
+@pytest.mark.parametrize("cluster", ["small_test_cluster", "cluster_a",
+                                     "cluster_d"])
+def test_sharded_engine_nccl_group_of_one_matches_serial(card, cluster):
+    """The sharded engine on the card in an NCCL group of one rank equals
+    the serial engine on the card (moves, sources tried, certificate
+    counters), with one window launch a step and no unwindowed
+    ``select_rows``, and a sharded chunk syncs nothing."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch import obs
+    from repro_torch.core import clustergen
+    from repro_torch.core.planner import create_planner
+    from repro_torch.core.shard import ShardedBatchPlanner
+    keys = ("bound_hits", "pruned_sources", "sources_tried_hist")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            want = create_planner("equilibrium_batch", chunk=8,
+                                  device=card).plan(
+                getattr(clustergen, cluster)(), record_trajectory=True)
+            select_move.reset_launch_count()
+            reg = obs.registry()
+            snap = reg.snapshot()
+            planner = create_planner("equilibrium_batch_sharded", chunk=8,
+                                     device=card)
+            got = planner.plan(getattr(clustergen, cluster)(),
+                               record_trajectory=True)
+            launches = select_move.launch_counts()
+            steps = 8 * int(reg.deltas_since(snap)["batch.chunks"])
+            bp = ShardedBatchPlanner(getattr(clustergen, cluster)(),
+                                     chunk=8, device=card)
+            bp.sync()
+            bp._step.run(8)                  # the collectives' first calls
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                bp._step.run(8)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        finally:
+            dist.destroy_process_group()
+    assert [(m.pg, m.slot, m.src_osd, m.dst_osd) for m in got.moves] \
+        == [(m.pg, m.slot, m.src_osd, m.dst_osd) for m in want.moves]
+    assert [r.sources_tried for r in got.records] \
+        == [r.sources_tried for r in want.records]
+    assert {k: got.stats[k] for k in keys} == {k: want.stats[k] for k in keys}
+    assert got.stats["shards"] == 1
+    assert got.stats["host_syncs"] == steps // 8     # one sync a chunk
+    assert launches == {"select_rows": 0, "masked_select": 0,
+                        "select_rows_window": steps}

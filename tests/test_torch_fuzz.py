@@ -164,11 +164,13 @@ def test_generated_timeline_matches_reference(profile, seed):
                                  engines=HOST)
     lanes = fuzz.run_timeline(tl, device="cpu")
     assert set(lanes) == {"equilibrium", "equilibrium_batch",
+                          "equilibrium_batch_sharded",
                           "equilibrium_faithful", "equilibrium_jax_legacy",
                           "fleet", "mgr", "none"}
     for engine, lane in lanes.items():
         _same_lane(lane, want.get(engine, want["equilibrium"]))
     assert lanes["equilibrium_batch"].rebuilds <= 1
+    assert lanes["equilibrium_batch_sharded"].rebuilds <= 1
 
 
 def test_generated_timeline_through_the_fleet_lane():
@@ -319,14 +321,35 @@ def test_cli_mutation_smoke_shrinks_small(capsys):
 
 def test_cli_replay_and_sweep(capsys):
     """Replay of the slack regression and a two-seed sweep through the
-    whole class (five engines, the fleet lane included) on the CPU both
-    exit 0."""
+    whole class (six engines, the fleet and sharded lanes included) on the
+    CPU both exit 0."""
     path = fuzz.corpus_dir() / "legacy-slack-divergence.json"
     assert cli.main(["--replay", str(path), "--device", "cpu"]) == 0
     assert cli.main(["--seeds", "2:4", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert f"replay ok: {path} (30 moves)" in out
-    assert "sweep ok: 2 timelines x 5 engines, 0 oracle failures" in out
+    assert "sweep ok: 2 timelines x 6 engines, 0 oracle failures" in out
+
+
+def test_cli_shard_subprocess_lane(capsys, monkeypatch):
+    """``--shard-subprocess 1`` runs the seed's timeline through the
+    sharded lane in two spawned gloo ranks on the CPU, each rank equal to
+    the reference lane (exit 0); a rank whose moves differ fails the
+    agreement oracle."""
+    assert cli.main(["--seeds", "3:4", "--device", "cpu", "--no-baselines",
+                     "--shard-subprocess", "1", "--shard-devices",
+                     "2"]) == 0
+    assert "sweep ok: 1 timelines" in capsys.readouterr().out
+    from repro_torch.core import shard
+    tl = sim.generate_timeline(3)
+    ref = fuzz.run_timeline(tl, engines=HOST, baseline_lanes=(),
+                            replay_check=False, device="cpu")[HOST[0]]
+    monkeypatch.setattr(
+        shard, "spawn_ranks",
+        lambda fn, world, backend, args: [(ref.moves, ref.metrics_json),
+                                          (ref.moves[1:], ref.metrics_json)])
+    with pytest.raises(fuzz.OracleFailure, match="rank 1: moves differ"):
+        cli.shard_subprocess_check(tl, ref, 2)
 
 
 # ---------------------------------------------------------------------------

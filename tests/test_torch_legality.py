@@ -159,7 +159,9 @@ def test_public_names_are_the_functions():
                  "variance_improves", "before_source", "fullest_first",
                  "bound_crossed", "bound_capacity_binding",
                  "count_flip_enables", "device_class_ids",
-                 "device_domain_ids", "LegalityState"):
+                 "device_domain_ids", "LegalityState", "shard_owns",
+                 "shard_gather_contrib", "shard_gather_finish",
+                 "shard_any", "shard_winner_better"):
         obj = getattr(leg, name)
         assert obj.__name__ == name
 
@@ -175,6 +177,7 @@ PORT_HOME = "repro_torch/core/legality.py"
 PORT_MUST_IMPORT = ("repro_torch/core/equilibrium.py",
                     "repro_torch/core/equilibrium_batch.py",
                     "repro_torch/core/equilibrium_dense.py",
+                    "repro_torch/core/shard.py",
                     "repro_torch/core/dense.py",
                     "repro_torch/kernels/ref.py")
 

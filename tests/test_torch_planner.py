@@ -262,14 +262,16 @@ def test_mgr_matches_reference():
 def test_registry_and_stats_schema():
     assert STATS_SCHEMA.keys() == REF_SCHEMA.keys()
     assert available_planners() == ("equilibrium", "equilibrium_batch",
+                                     "equilibrium_batch_sharded",
                                      "equilibrium_faithful",
                                      "equilibrium_jax_legacy", "fleet", "mgr",
                                      "none")
     assert planners_in_class("equilibrium") == (
-        "equilibrium", "equilibrium_batch", "equilibrium_faithful",
-        "equilibrium_jax_legacy", "fleet")
+        "equilibrium", "equilibrium_batch", "equilibrium_batch_sharded",
+        "equilibrium_faithful", "equilibrium_jax_legacy", "fleet")
     for name in available_planners():
         kw = {"device": "cpu"} if name in ("equilibrium_batch",
+                                           "equilibrium_batch_sharded",
                                            "equilibrium_jax_legacy",
                                            "fleet") else {}
         res = create_planner(name, **kw).plan(port_gen.small_test_cluster(),

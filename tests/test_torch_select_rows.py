@@ -37,9 +37,10 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def reference(src_order, n_avail, cap_lim, dyn, const, scal):
-    """(any, dst, cand_src) from the JAX package's legality core and
-    ``masked_select_ref``, on NumPy copies of the carry."""
+def reference_masks(src_order, n_avail, cap_lim, dyn, const, scal):
+    """The JAX package's legality core's (k, R, n) candidate mask and its
+    variance test, on NumPy copies of the carry, and the carry's util and
+    available sources."""
     src = src_order.numpy()
     dn = {k: v.numpy() for k, v in dyn.items()}
     cn = {k: v.numpy() for k, v in const.items()}
@@ -89,13 +90,25 @@ def reference(src_order, n_avail, cap_lim, dyn, const, scal):
         cn["cap"][src][:, None, None], cn["cap"][None, None, :], u_s,
         util[None, None, :], size[..., None], dn["us"], dn["usq"],
         sc["n_f"], sc["min_dvar"])
+    return cand, var_ok, util, np.arange(k) < int(n_avail)
+
+
+def reduce_reference(cand, var_ok, util, avail):
+    """(any, dst, cand_src) of reference masks: ``masked_select_ref`` of
+    the JAX package under ``jax.enable_x64``."""
+    k, R, n = cand.shape
     with jax.enable_x64(True):
         any_r, dst_r = ref_masked_select_ref(
             jnp.asarray((cand & var_ok).reshape(k * R, n)), jnp.asarray(util))
         any_r, dst_r = np.asarray(any_r), np.asarray(dst_r)
-    avail = np.arange(k) < int(n_avail)
     any_r = (any_r.reshape(k, R) & avail[:, None]).reshape(-1)
     return any_r, dst_r, cand.any(axis=(1, 2))
+
+
+def reference(*args):
+    """(any, dst, cand_src) from the JAX package's legality core and
+    ``masked_select_ref``, on NumPy copies of the carry."""
+    return reduce_reference(*reference_masks(*args))
 
 
 def assert_matches_reference(args):
@@ -180,6 +193,7 @@ def test_cpu_dispatch_never_launches_the_kernel():
     select_move.reset_launch_count()
     select_rows(*args)
     assert select_move.launch_counts() == {"select_rows": 0,
-                                           "masked_select": 0}
+                                           "masked_select": 0,
+                                           "select_rows_window": 0}
     with pytest.raises(ValueError, match="CUDA"):
         select_move.select_rows_fwd(*args)

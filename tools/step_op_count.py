@@ -16,9 +16,13 @@ that launch), in ``apply``, and in the whole step with the launch.
 ``--telemetry`` counts the step as it runs while a tracer is installed
 (the device telemetry on), ``--cache`` with the legality cache on,
 ``--source-block`` at another block of the walk (default 1).
+``--sharded`` counts the sharded engine's step (``core/shard.py``,
+``_ShardChunk``) on one shard, its window launch as the one launch, and
+the collectives a step it calls (identities with no process group, one
+collective each in a group).
 
     PYTHONPATH=src python tools/step_op_count.py [--cluster cluster_a]
-        [--telemetry] [--cache] [--source-block 3]
+        [--telemetry] [--cache] [--source-block 3] [--sharded]
 
 To count another checkout's engine, point ``PYTHONPATH`` at its
 ``src``.
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from collections import Counter
 
 import torch
 from torch.utils._python_dispatch import (TorchDispatchMode,
@@ -58,13 +63,29 @@ class OpCount(TorchDispatchMode):
 
 
 def count(cluster: str, steps: int, telemetry: bool = False,
-          cache: bool = False, source_block: int = 1) -> dict:
-    planner = eb.BatchPlanner(getattr(clustergen, cluster)(), device="cpu",
-                              legality_cache=cache,
-                              source_block=source_block)
+          cache: bool = False, source_block: int = 1,
+          sharded: bool = False, planner=None) -> dict:
+    """Operations a step of ``steps`` steps of a new planner of
+    ``cluster`` on the CPU, or of ``planner`` (any device) as given."""
+    if planner is None:
+        if sharded:
+            from repro_torch.core.shard import ShardedBatchPlanner
+            make = ShardedBatchPlanner
+        else:
+            make = eb.BatchPlanner
+        planner = make(getattr(clustergen, cluster)(), device="cpu",
+                       legality_cache=cache, source_block=source_block)
     planner.sync()
     step = planner._step
     fused = getattr(step, "select_rows", None)
+    collectives = Counter()
+    comm = getattr(step, "comm", None)
+    if comm is not None:
+        for name in ("sum", "max", "gather"):
+            def counted(t, _f=getattr(comm, name), _name=name):
+                collectives[_name] += 1
+                return _f(t)
+            setattr(comm, name, counted)
 
     def one_launch(*args, **kwargs):
         with _disable_current_modes():
@@ -84,15 +105,28 @@ def count(cluster: str, steps: int, telemetry: bool = False,
     if fused is not None:
         step.select_rows = one_launch
     step.select, step.apply = counted_select, counted_apply
-    with whole:                 # the nested modes' operations reach it too
-        step.run(steps, telemetry)
+    try:
+        with whole:             # the nested modes' operations reach it too
+            step.run(steps, telemetry)
+    finally:
+        if comm is not None:
+            for name in ("sum", "max", "gather"):
+                delattr(comm, name)
+        del step.select, step.apply
+        if fused is not None:
+            step.select_rows = fused
     launches = int(fused is not None)
-    return {"cluster": cluster, "steps": steps, "telemetry": telemetry,
-            "legality_cache": cache, "source_block": step.kb,
-            "select_ops_per_step": select.n / steps,
-            "select_launches_per_step": launches,
-            "apply_ops_per_step": apply.n / steps,
-            "run_ops_per_step": whole.n / steps + launches}
+    out = {"cluster": cluster, "steps": steps, "telemetry": telemetry,
+           "legality_cache": cache, "source_block": step.kb,
+           "sharded": comm is not None,
+           "select_ops_per_step": select.n / steps,
+           "select_launches_per_step": launches,
+           "apply_ops_per_step": apply.n / steps,
+           "run_ops_per_step": whole.n / steps + launches}
+    if comm is not None:
+        out["collectives_per_step"] = sum(collectives.values()) / steps
+        out["collectives"] = dict(collectives)
+    return out
 
 
 def main() -> None:
@@ -102,10 +136,11 @@ def main() -> None:
     ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--cache", action="store_true")
     ap.add_argument("--source-block", type=int, default=1)
+    ap.add_argument("--sharded", action="store_true")
     args = ap.parse_args()
     torch.set_num_threads(1)
     print(json.dumps(count(args.cluster, args.steps, args.telemetry,
-                           args.cache, args.source_block)))
+                           args.cache, args.source_block, args.sharded)))
 
 
 if __name__ == "__main__":
