@@ -236,7 +236,31 @@ phases, one JSON line each, and exits non-zero if any fails:
     collectives a step (``tools/step_op_count.py``'s ``count`` on the
     card); a profiled sharded chunk; the serial plan's seconds right
     after the sharded plan's;
-15. the kernel table line (K1 twice: ``select_rows``'s uncached and,
+15. ``serve`` (after ``shard``), the serving path
+    (``repro_torch.models.decode_step``, ``init_cache``,
+    ``repro_torch.serve.ServeEngine``), which launches no K1, K2 or K3:
+    (a) ``decode_step`` at full width in float32 (TF32 off) on the card
+    against the same parameters on the CPU, 16 steps from an empty cache
+    at B 2, every step's logits within rtol = atol = 1e-3, for zamba2-7b
+    cut to 6 layers (one shared-block application), mamba2-2.7b cut to
+    4 and qwen3-0.6b cut to 2; (b) on that 6-layer zamba2, 64
+    teacher-forced decode steps against ``prefill`` of the same 64
+    tokens on the card (K2 and K3 launched 1 and 6 times, SIMT), the
+    last-token logits within :data:`DECODE_PREFILL_TOL`; (c) a
+    ``ServeEngine`` on zamba2-7b at full width and depth (81 layers, bf16
+    compute over float32 parameters), 4 slots, ``max_len`` 256, a
+    ``PagedKVPool`` of 4 chips with 16-token pages, 8 requests of 8 to 24
+    prompt tokens (NumPy seed 0) and 32 new tokens each, a rebalance every
+    :data:`SERVE_REBALANCE_EVERY` steps: every request finishes with 32
+    tokens, every decode call's logits are finite, the cache's ``len``
+    stays below ``max_len``, at least two rebalances see live sequences
+    (each plan's moves printed, and why none moved where none did);
+    steps, tokens, decode-step milliseconds (median and spread of the
+    steps that admitted nothing), tokens/s, peak memory, migrated bytes,
+    the pool's final utilization, the PyTorch operations of one decode
+    step (``tools/step_op_count.py``'s ``OpCount``) and a profiled decode
+    step (device operations, busy ms, idle share, top ten kernels);
+16. the kernel table line (K1 twice: ``select_rows``'s uncached and,
     as ``select_rows_cached``, its cached instantiation's launches and
     times; the uncached one's launches by path (the cold cluster-B plan, the warm
     lifecycle, the legacy lane's standalone reduction, the simulator's
@@ -3967,20 +3991,13 @@ def phase_lm_parity(card: str, arch: str = "zamba2-7b", n_layers: int = 6,
     shared-block application), float32: prefill on the card through K2
     and K3, launched ``want`` times, all on their SIMT variants, against
     the same parameters' prefill on the CPU through the plain versions."""
-    import dataclasses
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import ssd_scan as k3
-    from repro_torch.models import LM, build_model, prefill
+    from repro_torch.models import prefill
     torch.backends.cuda.matmul.allow_tf32 = False    # full float32
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
-                              dtype="float32")
     t0 = time.perf_counter()
-    on_card = build_model(cfg, seed=0)
-    on_cpu = LM(cfg, torch.device("cpu"))
-    on_cpu.load_state_dict({k: v.cpu() for k, v in
-                            on_card.state_dict().items()})
+    cfg, on_card, on_cpu = card_and_cpu_models(arch, n_layers)
     setup_s = time.perf_counter() - t0
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, 256)))
@@ -4124,6 +4141,269 @@ def phase_prefill(card: str, arch: str = "zamba2-7b", k2_want: int = 14,
     return out
 
 
+#: decode against prefill (phase ``serve``, (b)): the 6-layer zamba2 in
+#: float32, 64 decode steps' last logits against the prefill's, which
+#: reach them by K2's flash softmax and K3's chunked scan instead of the
+#: direct product and the one-token recurrence; the same rtol = atol as
+#: the card against the CPU (PERF.md §6 has the measured gap)
+DECODE_PREFILL_TOL = 1e-3
+#: decode parity, card against CPU (phase ``serve``, (a)): architecture,
+#: layers kept, and the K2 / K3 launches of the decode path (none)
+SERVE_PARITY = (("zamba2-7b", 6), ("mamba2-2.7b", 4), ("qwen3-0.6b", 2))
+#: the full-depth zamba2-7b serving run (phase ``serve``, (c))
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_NEW_TOKENS = 4, 256, 8, 32
+SERVE_REBALANCE_EVERY = 8
+
+
+def card_and_cpu_models(arch: str, n_layers: int) -> tuple:
+    """``arch`` at full width cut to ``n_layers``, float32, seed 0 on the
+    card and a copy of its parameters on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, build_model
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              dtype="float32")
+    on_card = build_model(cfg, seed=0)
+    on_cpu = LM(cfg, torch.device("cpu"))
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    return cfg, on_card, on_cpu
+
+
+def decode_parity(arch: str, n_layers: int, steps: int = 16,
+                  B: int = 2) -> tuple[dict, object]:
+    """(a): ``steps`` decode steps from an empty cache on the card and on
+    the CPU, every step's logits within 1e-3, no K2 or K3 launch.
+    Returns the line's fields and the card's model."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.models import decode_step, init_cache
+    t0 = time.perf_counter()
+    cfg, on_card, on_cpu = card_and_cpu_models(arch, n_layers)
+    setup_s = time.perf_counter() - t0
+    card_cache = init_cache(cfg, B, steps, "cuda")
+    cpu_cache = init_cache(cfg, B, steps, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (steps, B, 1)))
+    k2.reset_launch_count()
+    k3.reset_launch_count()
+    errs, scale = [], 0.0
+    for i, tok in enumerate(tokens):
+        got, card_cache = decode_step(on_card, card_cache, tok.cuda())
+        want, cpu_cache = decode_step(on_cpu, cpu_cache, tok)
+        got = got.cpu()
+        errs.append(float((got - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+        check(bool(torch.isfinite(got).all()), f"{arch} decode step {i}: "
+                                               f"logits not finite")
+        check(torch.allclose(got, want, rtol=1e-3, atol=1e-3),
+              f"{arch} {n_layers}-layer decode step {i}: card differs "
+              f"from CPU (max abs err {errs[-1]})")
+    launches = (k2.launch_count(), k3.launch_count())
+    check(launches == (0, 0), f"{arch} decode launched K2, K3 {launches} "
+                              f"times, expected none")
+    return ({"config": f"{arch}, n_layers {n_layers}, float32", "B": B,
+             "steps": steps, "max_abs_err": max(errs),
+             "max_abs_err_by_step": errs, "logit_scale": scale,
+             "tolerance": "rtol = atol = 1e-3", "setup_s": setup_s},
+            on_card)
+
+
+def decode_against_prefill(model, T: int = 64) -> dict:
+    """(b): ``T`` teacher-forced decode steps (B 1) against ``prefill``
+    of the same tokens, both on the card; the prefill through K2 and K3
+    (1 and 6 SIMT launches on the 6-layer zamba2 in float32)."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.models import decode_step, init_cache, prefill
+    cfg = model.cfg
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, T))).cuda()
+    cache = init_cache(cfg, 1, T, "cuda")
+    for t in range(T):
+        logits, cache = decode_step(model, cache, tokens[:, t:t + 1])
+    k2.reset_launch_count()
+    k3.reset_launch_count()
+    want = prefill(model, {"tokens": tokens})
+    launches = (k2.launch_counts(), k3.launch_counts())
+    err = float((logits - want).abs().max())
+    check(launches == ({"tensor_core": 0, "simt": 1},
+                       {"tensor_core": 0, "simt": cfg.n_layers}),
+          f"the decode-against-prefill prefill launched K2, K3 by variant "
+          f"{launches}, expected 1 and {cfg.n_layers} SIMT")
+    check(torch.allclose(logits, want, rtol=DECODE_PREFILL_TOL,
+                         atol=DECODE_PREFILL_TOL),
+          f"{T} decode steps differ from the prefill (max abs err {err})")
+    return {"config": f"{cfg.name}, n_layers {cfg.n_layers}, float32",
+            "T": T, "max_abs_err": err,
+            "logit_scale": float(want.abs().max()),
+            "tolerance": f"rtol = atol = {DECODE_PREFILL_TOL}",
+            "prefill_launches_by_variant": {"k2": launches[0],
+                                            "k3": launches[1]}}
+
+
+def serve_zamba2(card: str) -> dict:
+    """(c): the full-depth zamba2-7b ``ServeEngine`` run, which launches
+    no K1 (the pool plans on the host dense lane), K2 or K3."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import select_move as k1
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.models import build_model, param_count
+    from repro_torch.serve import (PagedKVPool, PagedKVSpec, Request,
+                                   ServeEngine)
+    sys.path.insert(0, str(ROOT / "tools"))
+    from step_op_count import OpCount
+    cfg = get_config("zamba2-7b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pool = PagedKVPool(PagedKVSpec(n_chips=4, page_tokens=16,
+                                   pages_per_chip=64))
+    engine = ServeEngine(cfg, model, batch_slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN, pool=pool,
+                         rebalance_every=SERVE_REBALANCE_EVERY)
+    rng = np.random.default_rng(0)
+    reqs = [Request(id=i, prompt=rng.integers(1, cfg.vocab_size,
+                                              size=int(rng.integers(8, 25))),
+                    max_new_tokens=SERVE_NEW_TOKENS)
+            for i in range(SERVE_REQUESTS)]
+    for r in reqs:
+        engine.submit(r)
+    # the sizes: every decode call advances the one shared len; the
+    # prompts' calls plus one a step must stay below max_len
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+
+    plans = []
+    rebalance = pool.rebalance
+
+    def recorded(*args):
+        live = len(pool.seq_chip)
+        plan = rebalance(*args)
+        plans.append({"step": engine.steps, "live_sequences": live,
+                      "chips_used": sorted(set(pool.seq_chip.values())),
+                      "moves": len(plan),
+                      "bytes": pool.migration_bytes(plan)})
+        return plan
+    pool.rebalance = recorded
+
+    calls = [0]
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    decode = engine._decode
+
+    def counted(tokens):
+        nonlocal finite
+        calls[0] += 1
+        logits = decode(tokens)
+        finite = finite & torch.isfinite(logits).all()
+        return logits
+    engine._decode = counted
+
+    for kernel in (k1, k2, k3):
+        kernel.reset_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, admit_ms = [], []
+    t_run = time.perf_counter()
+    while engine.queue or engine.active:
+        before = calls[0]
+        t0 = time.perf_counter()
+        engine.step()                         # ends in the argmax fetch
+        ms = (time.perf_counter() - t0) * 1e3
+        (step_ms if calls[0] - before == 1 else admit_ms).append(ms)
+        check(engine.steps < 10 * SERVE_REQUESTS * SERVE_NEW_TOKENS,
+              "the serving run does not finish")
+    run_s = time.perf_counter() - t_run
+    peak = torch.cuda.max_memory_allocated()
+    final_len = engine.cache["len"]
+    tokens = sum(len(r.generated) for r in reqs)
+    live_plans = [p for p in plans if p["live_sequences"]]
+    launches = [kernel.launch_count() for kernel in (k1, k2, k3)]
+    check(launches == [0, 0, 0], f"serving launched K1, K2, K3 {launches} "
+                                 f"times, expected none")
+    check(all(len(r.generated) == SERVE_NEW_TOKENS for r in reqs),
+          f"serving: generated {[len(r.generated) for r in reqs]} tokens, "
+          f"expected {SERVE_NEW_TOKENS} each")
+    check(bool(finite), "serving: a decode call's logits were not finite")
+    check(final_len == prompt_tokens + engine.steps
+          and final_len < SERVE_MAX_LEN,
+          f"serving: len {final_len} (prompt tokens {prompt_tokens} + "
+          f"{engine.steps} steps), max_len {SERVE_MAX_LEN}")
+    check(len(live_plans) >= 2, f"serving: {len(live_plans)} rebalances "
+                                f"saw live sequences, expected 2 or more")
+    why = None if any(p["moves"] for p in plans) else (
+        "every rebalance found one sequence a chip (4 slots on 4 chips, "
+        "admitted to the emptiest chip), so any move raises the variance")
+    pool.rebalance = rebalance
+    engine._decode = decode
+
+    # one decode step counted and one profiled, on the engine after the
+    # run (its cache advances by two more calls)
+    batch = np.ones((SERVE_SLOTS, 1), np.int64)
+    counter = OpCount()
+    with counter:
+        engine._decode(batch)
+    torch.cuda.synchronize()
+
+    def run():
+        engine._decode(batch)
+        torch.cuda.synchronize()
+    rows, wall = profiled(run, lambda rows: None if rows
+                          else "no device records", "a zamba2-7b decode step")
+    busy = sum(ms for ms, _ in rows.values())
+    top = sorted(((k, ms, n) for k, (ms, n) in rows.items()),
+                 key=lambda r: -r[1])[:10]
+    ordered = sorted(step_ms)
+    out = {"card": card, "config": f"{cfg.name}, {cfg.n_layers} layers, "
+                                   f"full width",
+           "params": sum(p.numel() for p in model.parameters()),
+           "param_count_analytic": param_count(cfg),
+           "dtype": "bfloat16 compute, float32 parameters",
+           "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+           "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW_TOKENS,
+           "prompt_tokens": prompt_tokens,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "pool": "4 chips, 16-token pages, 64 pages a chip",
+           "rebalance_every": SERVE_REBALANCE_EVERY, "init_s": init_s,
+           "steps": engine.steps, "decode_calls": calls[0],
+           "tokens_generated": tokens, "run_s": run_s,
+           "tokens_per_s": tokens / run_s,
+           "decode_step_ms": {"steps": len(step_ms),
+                              "median": ordered[len(ordered) // 2],
+                              "min": ordered[0], "max": ordered[-1]},
+           "admit_step_ms": admit_ms,
+           "len_final": final_len, "len_bound": "prompt tokens + steps",
+           "peak_mem_bytes": peak, "migrated_bytes": engine.migrated_bytes,
+           "rebalances": plans, "rebalances_live": len(live_plans),
+           "no_move_why": why,
+           "pool_utilization": pool.utilization().tolist(),
+           "ops_per_decode_step": counter.n,
+           "profile": {"wall_ms": wall * 1e3, "device_ms": busy,
+                       "idle_share": 1.0 - busy / (wall * 1e3),
+                       "device_ops": sum(n for _, n in rows.values()),
+                       "top": [{"name": k[:80], "device_ms": ms,
+                                "launches": n} for k, ms, n in top]}}
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(card: str) -> dict:
+    """Phase ``serve``: (a), (b) and (c) of the module docstring."""
+    torch.backends.cuda.matmul.allow_tf32 = False    # full float32
+    torch.backends.cudnn.allow_tf32 = False
+    parity = {}
+    for arch, n_layers in SERVE_PARITY:
+        parity[arch], on_card = decode_parity(arch, n_layers)
+        if arch == "zamba2-7b":
+            against = decode_against_prefill(on_card)
+        del on_card
+        torch.cuda.empty_cache()
+    out = {"card": card, "decode_parity": parity,
+           "decode_against_prefill": against, "serve": serve_zamba2(card)}
+    emit("serve", **out)
+    return out
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  phase: dict) -> dict:
     """One kernel of the table line; ``variant`` names the one the main
@@ -4204,6 +4484,7 @@ def run_all(b2: subprocess.Popen) -> int:
     blocks = phase_source_block(card, built_b[0])
     fleet = phase_fleet(card, built_b[0], full, env)
     shard = phase_shard(card, built_b[0], full, env)
+    phase_serve(card)
     # the entry's launches and times are the tensor-core variant's at the
     # zamba2 prefill (N 64); its N 128 instantiation's at mamba2's shape
     # and the SIMT variant's there (float32, off both prefills) stand

@@ -3,7 +3,8 @@
 ``SHAPES`` are the assigned LM shapes: ``train_4k`` for the training
 step, ``prefill_32k`` for the prefill trunk, ``decode_32k`` /
 ``long_500k`` for one serve step against a seq_len-sized cache.  Of the
-ten architectures ``zamba2-7b`` and ``mamba2-2.7b`` are ported so far;
+ten architectures ``zamba2-7b``, ``mamba2-2.7b`` and ``qwen3-0.6b`` (the
+serving launcher's default) are ported so far;
 :func:`get_config` raises ``NotImplementedError`` for the others
 (ROADMAP.md queue 1, item 9(d)).
 """
@@ -29,7 +30,7 @@ ARCHS = {
 }
 
 #: architectures whose configuration and forward the port has
-PORTED = ("zamba2-7b", "mamba2-2.7b")
+PORTED = ("zamba2-7b", "mamba2-2.7b", "qwen3-0.6b")
 
 
 @dataclass(frozen=True)

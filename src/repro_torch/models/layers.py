@@ -129,36 +129,76 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                                        *w.shape[1:])
 
 
-def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions,
-               causal=True, window=None, cache=None):
-    """Attention sublayer → (out (B, T, D), new cache).  ``cache`` =
-    (k, v, length) with k/v (B, S_max, KV, Dh) for decode, length a
-    Python int; None for train/prefill."""
-    B, T, D = x.shape
+def attn_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
+    """The attention sublayer's queries, keys and values for x (B, T, D):
+    projections, qk-norm where the config has it, then RoPE at
+    ``positions`` (B, T) unless None."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    new_cache, kv_len_mask, q_offset = None, None, 0
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(p, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Attention (B, T, H, Dh) through the output projection → (B, T, D)."""
+    B, T = out.shape[:2]
+    H, Dh = cfg.n_heads, cfg.head_dim
+    return out.reshape(B, T, H * Dh) @ p["wo"].to(out.dtype).reshape(H * Dh,
+                                                                     -1)
+
+
+def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions,
+               causal=True, window=None, cache=None):
+    """Attention sublayer → (out (B, T, D), new cache).  ``cache`` =
+    (k, v, length) with k/v (B, S_max, KV, Dh) for decode, length a
+    Python int; None for train/prefill.
+
+    The new keys and values are written into the cache's k and v in
+    place, which are handed back: the caller owns the cache.  They land
+    at ``min(length, S_max - T)``, as the reference's
+    ``dynamic_update_slice_in_dim`` clamps its start, so a cache that
+    has run past its end takes them in its last slots; the query offset
+    stays ``length`` and the key length mask ``length + T``."""
+    T = x.shape[1]
+    q, k, v = attn_qkv(p, x, cfg, positions)
+    kv_len_mask, q_offset = None, 0
+    new_cache = None
     if cache is not None:
         ck, cv, clen = cache
-        ck = ck.clone()
-        cv = cv.clone()
-        ck[:, clen:clen + T] = k.to(ck.dtype)
-        cv[:, clen:clen + T] = v.to(cv.dtype)
+        at = min(clen, ck.shape[1] - T)
+        ck[:, at:at + T] = k.to(ck.dtype)
+        cv[:, at:at + T] = v.to(cv.dtype)
         new_cache = (ck, cv, clen + T)
         k, v = ck, cv
         kv_len_mask, q_offset = clen + T, clen
     out = attention(q, k, v, causal=causal, q_offset=q_offset, window=window,
                     cap=cfg.attn_softcap, kv_len_mask=kv_len_mask)
-    H, Dh = cfg.n_heads, cfg.head_dim
-    out = out.reshape(B, T, H * Dh) @ p["wo"].to(x.dtype).reshape(H * Dh, D)
-    return out, new_cache
+    return attn_out(p, out, cfg), new_cache
+
+
+def attn_ring_step(p, x: torch.Tensor, cfg: ModelConfig, *, positions,
+                   cache):
+    """One decode token of an all-sliding-window layer, whose cache is a
+    ring of S_max = min(window, max_len) slots: the key and value go to
+    slot ``length % S_max`` (in place, as :func:`attn_apply` writes) and
+    the query attends to every live slot, ``min(length + 1, S_max)`` of
+    them, without a causal or window mask — every live entry is inside
+    the window.  → (out (B, 1, D), (k, v, length + 1))."""
+    ck, cv, clen = cache
+    S_max = ck.shape[1]
+    q, k, v = attn_qkv(p, x, cfg, positions)
+    at = clen % S_max
+    ck[:, at:at + 1] = k.to(ck.dtype)
+    cv[:, at:at + 1] = v.to(cv.dtype)
+    out = attention(q, ck, cv, causal=False, cap=cfg.attn_softcap,
+                    kv_len_mask=min(clen + 1, S_max))
+    return attn_out(p, out, cfg), (ck, cv, clen + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Language-model assembly: the prefill trunk as ``nn.Module``s.
+"""Language-model assembly: the prefill trunk and the decode step as
+``nn.Module``s.
 
 Ported families: the SSM+shared-attention hybrid (zamba2), the
 attention-free SSD stack (mamba2) and the dense decoder without MoE.
@@ -12,7 +13,9 @@ reference's parameter tree (``layers.3.ssm.in_z`` is the reference's
 
 Entry points: :func:`build_model` (seeded random weights) or
 :func:`repro_torch.models.convert.params_from_numpy` (the reference's
-weights), then :func:`prefill` — last-token logits.
+weights), then :func:`prefill` — last-token logits — or
+:func:`init_cache` and :func:`decode_step`, one token at a time against
+static-shape caches (the serving path, :mod:`repro_torch.serve.engine`).
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ from torch import nn
 from repro_torch.device import resolve_device
 
 from .common import ModelConfig
-from .layers import (NO_WINDOW, attn_apply, attn_params_shape, mlp_apply,
-                     mlp_params_shape, rms_norm, softcap)
-from .ssm import ssm_apply, ssm_params_shape
+from .layers import (NO_WINDOW, attn_apply, attn_params_shape,
+                     attn_ring_step, mlp_apply, mlp_params_shape, rms_norm,
+                     softcap)
+from .ssm import ssm_apply, ssm_cache_init, ssm_params_shape
 
 _NORMS = ("ln", "ln1", "ln2", "ln_x", "final_norm", "out_norm", "q_norm",
           "k_norm")
@@ -106,12 +110,17 @@ class SSDBlock(ParamTree):
         super().__init__(block_shapes(cfg), device)
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor, positions=None,
-                window=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions=None, window=None,
+                cache=None) -> torch.Tensor:
         """``positions`` and ``window`` are the attention blocks'; an SSD
-        layer has neither."""
-        h, _ = ssm_apply(self["ssm"], rms_norm(x, self["ln"],
-                                               self.cfg.norm_eps), self.cfg)
+        layer has neither.  ``cache`` = (ssd, conv), the layer's decode
+        state, which a decode token advances in place."""
+        h, new = ssm_apply(self["ssm"], rms_norm(x, self["ln"],
+                                                 self.cfg.norm_eps),
+                           self.cfg, cache=cache)
+        if cache is not None:
+            for held, state in zip(cache, new):
+                held.copy_(state)
         return x + h
 
 
@@ -124,11 +133,19 @@ class AttnMLPBlock(ParamTree):
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                window: int | None = None) -> torch.Tensor:
+                window: int | None = None, cache=None) -> torch.Tensor:
+        """``cache`` = (k, v, length), the layer's decode cache, written
+        in place: a ring for an all-sliding-window config, else a linear
+        buffer (:func:`~.layers.attn_apply`)."""
         eps = self.cfg.norm_eps
-        h, _ = attn_apply(self["attn"], rms_norm(x, self["ln1"], eps),
-                          self.cfg, positions=positions, causal=True,
-                          window=window)
+        hn = rms_norm(x, self["ln1"], eps)
+        if cache is not None and _rolling(self.cfg):
+            h, _ = attn_ring_step(self["attn"], hn, self.cfg,
+                                  positions=positions, cache=cache)
+        else:
+            h, _ = attn_apply(self["attn"], hn, self.cfg,
+                              positions=positions, causal=True,
+                              window=window, cache=cache)
         x = x + h
         return x + mlp_apply(self["mlp"], rms_norm(x, self["ln2"], eps),
                              self.cfg)
@@ -243,19 +260,36 @@ def window_schedule(cfg: ModelConfig) -> list[int] | None:
             for i in range(cfg.n_layers)]
 
 
-def forward_hidden(model: LM, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+def _rolling(cfg: ModelConfig) -> bool:
+    """All-sliding-window configs decode against a ring buffer."""
+    return cfg.swa_pattern == "all" and cfg.sliding_window is not None
+
+
+def forward_hidden(model: LM, x: torch.Tensor, positions: torch.Tensor,
+                   cache: dict | None = None) -> torch.Tensor:
     """Embed-less trunk: x (B, T, D) → hidden (B, T, D).  Each block's
     forward is the reference's ``_block_apply``; the hybrid's shared
     block (its ``_shared_attn_apply``) runs before every
-    ``shared_attn_every``-th layer, with full attention."""
+    ``shared_attn_every``-th layer, with full attention.  With a decode
+    ``cache`` (:func:`init_cache`) each layer reads and writes its own
+    slice of it; the shared block's ``a``-th application, before layer
+    ``a * shared_attn_every``, uses attention cache ``a``."""
     cfg = model.cfg
     windows = window_schedule(cfg)
     every = max(cfg.shared_attn_every, 1)
     for i, block in enumerate(model.layers):
         if model.shared is not None and i % every == 0:
-            x = model.shared(x, positions)
-        x = block(x, positions, None if windows is None else windows[i])
+            attn_cache = None if cache is None else (
+                cache["k"][i // every], cache["v"][i // every], cache["len"])
+            x = model.shared(x, positions, cache=attn_cache)
+        if cache is None:
+            layer_cache = None
+        elif "ssd" in cache:
+            layer_cache = (cache["ssd"][i], cache["conv"][i])
+        else:
+            layer_cache = (cache["k"][i], cache["v"][i], cache["len"])
+        x = block(x, positions, None if windows is None else windows[i],
+                  cache=layer_cache)
     return x
 
 
@@ -265,15 +299,85 @@ def embed_tokens(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens].to(getattr(torch, model.cfg.dtype))
 
 
-def prefill(model: LM, batch: dict) -> torch.Tensor:
-    """Prefill forward: tokens (B, S) → last-token logits (B, V) float32."""
+def _last_logits(model: LM, hidden: torch.Tensor) -> torch.Tensor:
+    """The last position's final norm and unembedding → (B, V) float32,
+    soft-capped."""
     cfg = model.cfg
-    tokens = batch["tokens"]
-    x = embed_tokens(model, tokens)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    hidden = forward_hidden(model, x, positions)
     last = rms_norm(hidden[:, -1], model.final_norm, cfg.norm_eps)
     w_un = model.embed if model.unembed is None else model.unembed
     logits = last @ w_un.to(last.dtype).T
     return softcap(logits.float(), cfg.final_softcap)
+
+
+def prefill(model: LM, batch: dict) -> torch.Tensor:
+    """Prefill forward: tokens (B, S) → last-token logits (B, V) float32."""
+    tokens = batch["tokens"]
+    x = embed_tokens(model, tokens)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    return _last_logits(model, forward_hidden(model, x, positions))
+
+
+# ---------------------------------------------------------------------------
+# Serving: static-shape caches and the one-token decode step
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The decode cache's tensor leaves as meta tensors (shape and dtype,
+    no storage), each the reference's leaf, stacked on a leading layer
+    axis: ``ssd`` (L, B, H, P, N) float32 and ``conv`` (L, B, K-1,
+    conv_dim) for the SSD layers; ``k`` and ``v`` (n, B, S, KV, Dh) for
+    attention — n the hybrid's shared-block applications or the dense
+    layers, S ``max_len``, or min(window, max_len) for an
+    all-sliding-window ring.  The reference's ``len`` leaf is kept on
+    the host (:func:`init_cache`)."""
+    check_ported(cfg)
+    KV, Dh, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    dt = getattr(torch, cfg.dtype)
+
+    def meta(shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    spec = {}
+    if cfg.family in ("ssm", "hybrid"):
+        ssd, conv = ssm_cache_init(cfg, batch, dt, device="meta")
+        spec = {"ssd": meta((L, *ssd.shape), ssd.dtype),
+                "conv": meta((L, *conv.shape))}
+        if cfg.family == "ssm":
+            return spec
+        n_attn = -(-L // max(cfg.shared_attn_every, 1))
+        kv = (n_attn, batch, max_len, KV, Dh)
+    else:
+        window = (min(cfg.sliding_window, max_len)
+                  if cfg.swa_pattern == "all" and cfg.sliding_window
+                  else max_len)
+        kv = (L, batch, window, KV, Dh)
+    return {**spec, "k": meta(kv), "v": meta(kv)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """A zero cache of :func:`cache_spec`'s leaves on ``device`` (the
+    card unless named; pass the model's), with ``len`` 0: a Python int,
+    so that a step reads nothing back from the device."""
+    device = resolve_device(device, "the decode cache")
+    cache = {name: torch.zeros(s.shape, dtype=s.dtype, device=device)
+             for name, s in cache_spec(cfg, batch, max_len).items()}
+    cache["len"] = 0
+    return cache
+
+
+def decode_step(model: LM, cache: dict, tokens: torch.Tensor
+                ) -> tuple[torch.Tensor, dict]:
+    """One-token decode: tokens (B, 1) → (logits (B, V) float32,
+    soft-capped; the cache).  Every row sits at position ``cache["len"]``.
+    The cache's tensors are updated in place and its ``len`` advanced by
+    one; the same dict is handed back.  Past ``max_len`` a linear cache
+    keeps writing its last slot, as the reference's clamped update does
+    (:func:`~.layers.attn_apply`)."""
+    x = embed_tokens(model, tokens)
+    positions = torch.full((tokens.shape[0], 1), cache["len"],
+                           device=x.device)
+    logits = _last_logits(model, forward_hidden(model, x, positions, cache))
+    cache["len"] += 1
+    return logits, cache

@@ -4,7 +4,7 @@ Prefill runs the chunked SSD scan through
 :func:`repro_torch.kernels.ops.ssd_scan`: K3 on CUDA tensors, its plain
 chunk loop on the CPU — within a chunk the quadratic (dual) form, across
 chunks a (B, H, P, N) float32 state.  Decode is the one-token recurrence
-:func:`ssd_decode_step`.
+:func:`ssd_decode_step` over the state :func:`ssm_cache_init` makes.
 """
 
 from __future__ import annotations
@@ -110,3 +110,15 @@ def ssm_apply(p, x: torch.Tensor, cfg: ModelConfig, cache=None):
     y = rms_norm(y, p["out_norm"], cfg.norm_eps)
     out = y @ p["out_proj"].to(x.dtype)
     return out, (state, new_conv) if cache is not None else None
+
+
+def ssm_cache_init(cfg: ModelConfig, batch: int,
+                   dtype: torch.dtype = torch.float32, device=None):
+    """A layer's zero decode state: (ssd (B, H, P, N) float32, conv
+    (B, K-1, conv_dim) in ``dtype``)."""
+    H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    return (torch.zeros((batch, H, P, N), dtype=torch.float32,
+                        device=device),
+            torch.zeros((batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
+                        device=device))

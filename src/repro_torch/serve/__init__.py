@@ -1,7 +1,8 @@
-"""Serving substrate of the port: the Equilibrium-balanced paged KV pool
-(the counterpart of ``src/repro/serve/paged_kv.py``); the decode engine
-is not ported yet."""
+"""Serving substrate of the port: the decode engine and the
+Equilibrium-balanced paged KV pool (the counterparts of
+``src/repro/serve/``)."""
 
 from .paged_kv import PagedKVPool, PagedKVSpec
+from .engine import ServeEngine, Request
 
-__all__ = ["PagedKVPool", "PagedKVSpec"]
+__all__ = ["PagedKVPool", "PagedKVSpec", "ServeEngine", "Request"]

@@ -1,6 +1,7 @@
 """The port's CUDA kernels K1's fused selection (``select_rows``), K2
 (flash attention) and K3 (the SSD scan) against their plain versions,
-and the LM prefill through them against the same parameters on the CPU.  Every test needs a card (``cuda``
+and the LM prefill through them against the same parameters on the CPU;
+the decode step and the serving engine on the card against the CPU.  Every test needs a card (``cuda``
 marker) and skips without one; the file imports no JAX, so it runs
 where the card is:
 
@@ -386,6 +387,67 @@ def test_prefill_on_card_matches_cpu(card):
     assert (k2.launch_count(), k3.launch_count()) == (2, 4)
     want = prefill(on_cpu, {"tokens": tok})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def test_decode_step_on_card_matches_cpu(card):
+    """Reduced zamba2 in float32, 8 decode steps from an empty cache on
+    the card and on the CPU with one set of parameters: every step's
+    logits and the final cache within 1e-4; no kernel launches (decode
+    attention takes the direct product, SSD the one-token recurrence)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, build_model, decode_step, init_cache
+    cfg = get_config("zamba2-7b").reduced(dtype="float32")
+    on_card = build_model(cfg, seed=0)
+    on_cpu = LM(cfg, torch.device("cpu"))
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    card_cache = init_cache(cfg, 2, 16, card)
+    cpu_cache = init_cache(cfg, 2, 16, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 2, 1)))
+    k2.reset_launch_count()
+    k3.reset_launch_count()
+    for step in tokens:
+        got, card_cache = decode_step(on_card, card_cache, step.to(card))
+        want, cpu_cache = decode_step(on_cpu, cpu_cache, step)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert (k2.launch_count(), k3.launch_count()) == (0, 0)
+    assert card_cache["len"] == cpu_cache["len"] == 8
+    for leaf in ("ssd", "conv", "k", "v"):
+        torch.testing.assert_close(card_cache[leaf].cpu(), cpu_cache[leaf],
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_serve_engine_on_card_generates_the_cpu_tokens(card):
+    """A 2-slot engine over reduced qwen3 in float32 on the card and on
+    the CPU, the same three requests: the same tokens, steps and
+    migrated bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, build_model
+    from repro_torch.serve import PagedKVPool, PagedKVSpec, Request, \
+        ServeEngine
+    cfg = get_config("qwen3-0.6b").reduced(n_layers=2, vocab_size=64,
+                                           dtype="float32")
+    on_card = build_model(cfg, seed=0)
+    on_cpu = LM(cfg, torch.device("cpu"))
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    runs = []
+    for model in (on_card, on_cpu):
+        engine = ServeEngine(cfg, model, batch_slots=2, max_len=64,
+                             pool=PagedKVPool(PagedKVSpec(
+                                 n_chips=2, page_tokens=8,
+                                 pages_per_chip=64)))
+        reqs = [Request(id=i, prompt=np.array([1 + i, 2, 3]),
+                        max_new_tokens=4 + i) for i in range(3)]
+        for r in reqs:
+            engine.submit(r)
+        engine.run(max_steps=200)
+        assert not (engine.active or engine.queue)
+        runs.append(([r.generated for r in reqs], engine.steps,
+                     engine.migrated_bytes))
+    assert runs[0] == runs[1]
+    assert [len(g) for g in runs[0][0]] == [4, 5, 6]
 
 
 def _select_rows_matches_plain(args, card, smem_limit=None):

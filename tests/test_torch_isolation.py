@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch``
 loads neither JAX nor the reference package ``repro``; no module of the
 port, nor ``chip_smoke.py`` or the planner carries it shares with the
-tests, imports either; and the default device of
-the batch engine and of the LM is the card — each raises without one
+tests, imports either; and the default device of the batch engine, of
+the LM and of the serving path is the card — each raises without one
 rather than carrying on on the CPU."""
 
 import ast
@@ -49,7 +49,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
             "repro_torch.configs.zamba2_7b", "repro_torch.core.simulate",
             "repro_torch.sim.engine", "repro_torch.sim.generate",
             "repro_torch.fleet.pack", "repro_torch.fleet.planner",
-            "repro_torch.fleet.service", "repro_torch.fleet.loadgen"} <= walked
+            "repro_torch.fleet.service", "repro_torch.fleet.loadgen",
+            "repro_torch.serve.engine", "repro_torch.launch.serve",
+            "repro_torch.configs.qwen3_0_6b"} <= walked
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -100,6 +102,27 @@ def test_lm_default_device_is_cuda():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy(cfg, {})
+
+
+def test_serving_default_device_is_cuda():
+    """``init_cache`` with no device, and ``ServeEngine`` given the
+    reference's parameter tree rather than a model, go to the card;
+    without one they raise.  An engine runs where its model lies."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_cache
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("qwen3-0.6b").reduced(n_layers=1, vocab_size=64)
+    assert ServeEngine(cfg, build_model(cfg, device="cpu"),
+                       batch_slots=2).device.type == "cpu"
+    if torch.cuda.is_available():
+        assert init_cache(cfg, 2, 16)["k"].device.type == "cuda"
+        assert ServeEngine(cfg, build_model(cfg)).cache["k"].device.type \
+            == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, {})
 
 
 @pytest.mark.cuda

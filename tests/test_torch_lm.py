@@ -65,7 +65,7 @@ def test_zamba2_config_equals_reference():
     assert dataclasses.asdict(get_config("zamba2-7b")) \
         == dataclasses.asdict(ref_get_config("zamba2-7b"))
     assert set(ARCHS) == set(REF_ARCHS) \
-        and PORTED == ("zamba2-7b", "mamba2-2.7b")
+        and PORTED == ("zamba2-7b", "mamba2-2.7b", "qwen3-0.6b")
 
 
 def test_mamba2_config_equals_reference():
@@ -83,6 +83,20 @@ def test_mamba2_config_equals_reference():
     model = build_model(port, device="meta")
     assert sum(p.numel() for p in model.parameters()) == 2_702_579_200
     assert model.unembed is None and model.shared is None
+
+
+def test_qwen3_config_equals_reference():
+    """The port's qwen3-0.6b entry (the serving launcher's default) equals
+    the reference's field by field: dense, 28 layers, d_model 1024, 16
+    heads over 8 KV heads of 128, qk-norm, RoPE theta 1e6, untied."""
+    port, ref = get_config("qwen3-0.6b"), ref_get_config("qwen3-0.6b")
+    for field in dataclasses.fields(ref):
+        assert getattr(port, field.name) == getattr(ref, field.name), \
+            field.name
+    assert (port.family, port.n_layers, port.d_model, port.n_heads,
+            port.n_kv_heads, port.head_dim, port.rope_theta) \
+        == ("dense", 28, 1024, 16, 8, 128, 1e6)
+    assert port.qk_norm and not port.tie_embeddings
 
 
 @pytest.mark.parametrize("arch", sorted(set(REF_ARCHS) - set(PORTED)))
@@ -179,9 +193,13 @@ def test_mlp_matches_reference(act):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32)
 
 
-def test_attn_apply_decode_cache_matches_reference():
-    """The cache branch: one token written at ``clen`` and attended over
-    the filled prefix, with qk-norm and GQA."""
+@pytest.mark.parametrize("clen", [6, 9, 10, 13])
+def test_attn_apply_decode_cache_matches_reference(clen):
+    """The cache branch (S_max 10): one token written at ``clen`` and
+    attended over the filled prefix, with qk-norm and GQA.  At ``clen``
+    S_max and beyond the reference's ``dynamic_update_slice_in_dim``
+    clamps the write to the last slot, and so must the port, while the
+    query offset and the length mask stay ``clen`` and ``clen + 1``."""
     cfg = ModelConfig(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
                       qk_norm=True)
     rcfg = ref_common.ModelConfig(**dataclasses.asdict(cfg))
@@ -191,14 +209,14 @@ def test_attn_apply_decode_cache_matches_reference():
     x = rng.standard_normal((2, 1, 32)).astype(np.float32)
     ck = rng.standard_normal((2, 10, 2, 8)).astype(np.float32)
     cv = rng.standard_normal((2, 10, 2, 8)).astype(np.float32)
-    pos = np.full((2, 1), 6, np.int32)
+    pos = np.full((2, 1), clen, np.int32)
     ref, (rk, rv, rlen) = ref_layers.attn_apply(
         {n: _j(a) for n, a in p.items()}, _j(x), rcfg,
-        positions=jnp.asarray(pos), cache=(_j(ck), _j(cv), 6))
+        positions=jnp.asarray(pos), cache=(_j(ck), _j(cv), clen))
     got, (gk, gv, glen) = layers.attn_apply(
         {n: _t(a) for n, a in p.items()}, _t(x), cfg,
-        positions=torch.from_numpy(pos), cache=(_t(ck), _t(cv), 6))
-    assert glen == int(rlen) == 7
+        positions=torch.from_numpy(pos), cache=(_t(ck), _t(cv), clen))
+    assert glen == int(rlen) == clen + 1
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32)
     np.testing.assert_allclose(gk.numpy(), np.asarray(rk), **F32)
     np.testing.assert_allclose(gv.numpy(), np.asarray(rv), **F32)
