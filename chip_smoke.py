@@ -260,7 +260,40 @@ phases, one JSON line each, and exits non-zero if any fails:
     the pool's final utilization, the PyTorch operations of one decode
     step (``tools/step_op_count.py``'s ``OpCount``) and a profiled decode
     step (device operations, busy ms, idle share, top ten kernels);
-16. the kernel table line (K1 twice: ``select_rows``'s uncached and,
+16. ``train`` (the last, after ``serve``), the training path
+    (``repro_torch.models.loss_fn``, ``repro_torch.train``,
+    ``repro_torch.checkpoint``, ``python -m repro_torch.launch.train``),
+    with K2 and K3 differentiable (``kernels/ops.py::FlashAttention``,
+    ``SSDScan``: the kernels' forwards, plain backwards): (a) K2's
+    log-sum-exp (``with_lse``) against the plain online version's on
+    float32 copies of bf16 inputs, at the zamba2 shape (the tensor-core
+    variant) and at Dh 160 (the SIMT variant), causal and with a window
+    and a softcap, within 2e-3, the output unchanged beside it; (b) the
+    backward passes at a qwen3 layer's attention and a mamba2 layer's
+    scan (T 4,096, bf16) through the kernels' forwards against the
+    all-plain path on the card: attention within 2e-2 of each gradient's
+    largest entry, the scan's forward within ``ROW_REL_TOL`` of the float32
+    plain version in every row and its gradients equal (the backward's
+    plain recompute); (c) one ``make_train_step``
+    step at full width in float32 (TF32 off) on the card and on the CPU
+    from one set of parameters, zamba2-7b cut to 6 layers, mamba2-2.7b to
+    4, qwen3-0.6b to 2 (B 1, S 128): the loss and the gradients (as the
+    step's ``mu``) within 1e-3; (d) qwen3-0.6b at full width and depth
+    through the launcher in this process (``--full``, B 4, S 4,096,
+    :data:`TRAIN_QWEN3_STEPS` steps saving every :data:`TRAIN_SAVE_EVERY`
+    under ``build/train_ckpt``), then a second invocation resuming from
+    the first save to the same end: the first loss within 0.5 of ln V,
+    every loss and grad norm finite, 56 K2 launches a step (forward and
+    remat recompute), all tensor core, the restored tensors bitwise those
+    the first run held at the save, the resumed losses within
+    :data:`TRAIN_RESUME_TOL`; (e) mamba2-2.7b at full width and depth
+    (B 1, S 4,096, 3 steps): finite, 128 K3 launches a step, all tensor
+    core; for (d) and (e) per-step seconds, the median of the steps that
+    followed no save, tokens/s, peak memory and a profiled further step
+    (device ms, idle share, top kernels, the kernel's share and the
+    share of the kernels launched inside the plain backwards' autograd
+    nodes);
+17. the kernel table line (K1 twice: ``select_rows``'s uncached and,
     as ``select_rows_cached``, its cached instantiation's launches and
     times; the uncached one's launches by path (the cold cluster-B plan, the warm
     lifecycle, the legacy lane's standalone reduction, the simulator's
@@ -4404,6 +4437,523 @@ def phase_serve(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase train
+
+
+#: phase ``train`` (d): qwen3-0.6b at full width and depth through the
+#: training launcher, the registry's ``train_4k`` (S 4,096, global batch
+#: 256) cut to B 4 for one card and the run's time limit; a first run of
+#: :data:`TRAIN_QWEN3_STEPS` steps saving every :data:`TRAIN_SAVE_EVERY`,
+#: then a restart from the checkpoint at that step to the same end
+TRAIN_QWEN3_B, TRAIN_QWEN3_STEPS, TRAIN_SAVE_EVERY = 4, 4, 2
+#: (e): mamba2-2.7b at full width and depth, B 1, microbatches 1
+TRAIN_MAMBA2_B, TRAIN_MAMBA2_STEPS = 1, 3
+TRAIN_S = 4096
+#: (c): architectures and the layers kept for the card against the CPU
+TRAIN_PARITY = (("zamba2-7b", 6), ("mamba2-2.7b", 4), ("qwen3-0.6b", 2))
+#: (d): the restarted run's losses against the first run's: the two runs
+#: differ only by the order of floating-point atomic additions (the
+#: embedding's backward and the GEMMs' split reductions), which the bf16
+#: gradients round differently
+TRAIN_RESUME_TOL = 1e-3
+#: the autograd nodes of the plain backwards (phase ``train``'s profiles)
+PLAIN_BACKWARDS = ("FlashAttentionBackward", "SSDScanBackward")
+
+
+def train_lse(card: str) -> dict:
+    """(a): K2's log-sum-exp against the plain online version's on float32
+    copies of the same bf16 inputs: at the zamba2 shape (Dh 112, the
+    tensor-core variant) and at Dh 160 (the SIMT variant), causal, with a
+    window and a softcap; the output unchanged beside it."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels.ref import flash_attention_online
+    cases = {"zamba2_causal": (4096, 32, 112, None, None),
+             "zamba2_window_softcap": (4096, 32, 112, 1024, 50.0),
+             "dh160_causal": (2048, 8, 160, None, None),
+             "dh160_window_softcap": (2048, 8, 160, 512, 50.0)}
+    g = torch.Generator(device="cuda").manual_seed(30)
+    out = {}
+    for name, (T, H, Dh, window, cap) in cases.items():
+        q, k, v = (torch.randn((1, T, H, Dh), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        kw = dict(causal=True, window=window, cap=cap)
+        o, lse = k2.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+        check(torch.equal(o, k2.flash_attention_fwd(q, k, v, **kw)),
+              f"K2 {name}: the output with the lse differs from without")
+        _, want = flash_attention_online(q.float(), k.float(), v.float(),
+                                         with_lse=True, **kw)
+        err = float((lse - want).abs().max())
+        check(err <= 2e-3, f"K2 {name}: lse max abs err {err} > 2e-3")
+        out[name] = {"variant": k2.route(q.dtype, Dh), "T": T, "H": H,
+                     "Dh": Dh, "window": window, "cap": cap,
+                     "max_abs_err": err,
+                     "lse_range": [float(want.min()), float(want.max())]}
+        del q, k, v, o, lse, want
+    torch.cuda.empty_cache()
+    return {"cases": out, "tolerance": "2e-3 absolute (bf16 inputs)"}
+
+
+def train_grads(card: str) -> dict:
+    """(b): the backward passes at a qwen3 layer's attention (B 1, T
+    4,096, H 16 over KV 8, Dh 128) and a mamba2 layer's scan (B 1, T
+    4,096, H 80, P 64, N 128, chunk 128, the model's ramps), bf16 inputs
+    that require a gradient: through K2 / K3 forwards against the
+    all-plain path on the card.  Attention within 2e-2 of each
+    gradient's largest entry (K2's bf16 ``out`` in ``delta``).  The scan's
+    forward through K3 within :data:`ROW_REL_TOL` of the float32 plain
+    version in every (token, head) row; its gradients equal the all-plain
+    ones, which checks the backward's plain recompute from the saved
+    inputs, not K3 (the backward never reads K3's output)."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.kernels.ref import (flash_attention_bwd_plain,
+                                         flash_attention_online, ssd_chunked)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    q, k, v = (torch.randn((1, TRAIN_S, h, 128), generator=g, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for h in (16, 8, 8))
+    dout = torch.randn((1, TRAIN_S, 16, 128), generator=g,
+                       device="cuda").to(torch.bfloat16)
+    k2.reset_launch_count()
+    got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), dout)
+    check(k2.launch_counts() == {"tensor_core": 1, "simt": 0},
+          f"FlashAttention's forward launched K2 {k2.launch_counts()}")
+    out32, lse = flash_attention_online(q.detach(), k.detach(), v.detach(),
+                                        with_lse=True)
+    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                     out32, lse, dout)
+    attn = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        rel = float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max())
+        check(rel <= 2e-2, f"FlashAttention {name}: max abs err {rel} of "
+                           f"the largest entry > 2e-2")
+        attn[name] = rel
+    del q, k, v, dout, got, want, out32, lse
+    x, dt, A, Bm, Cm = ssd_inputs(g, 1, TRAIN_S, 80, 1, 64, 128,
+                                  torch.bfloat16, ramp=True)
+    ins = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    k3.reset_launch_count()
+    y = ops.ssd_scan(*ins, chunk=128)
+    got = torch.autograd.grad(y, ins, dy)
+    check(k3.launch_counts() == {"tensor_core": 1, "simt": 0},
+          f"SSDScan's forward launched K3 {k3.launch_counts()}")
+    with torch.no_grad():
+        y32 = ssd_chunked(*(t.detach().float() for t in ins), 128)[0]
+    y_abs, y_row = attention_errors(y.detach(), y32)
+    check(y_row <= ROW_REL_TOL,
+          f"SSDScan's forward through K3: worst row error {y_row} > "
+          f"{ROW_REL_TOL} of the float32 plain version")
+    plain = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    want = torch.autograd.grad(ssd_chunked(*plain, 128)[0], plain, dy)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(same, "SSDScan's gradients differ from the all-plain ones")
+    del x, dt, A, Bm, Cm, ins, plain, y, y32, got, want
+    torch.cuda.empty_cache()
+    return {"attention_max_abs_err_of_largest": attn,
+            "attention_tolerance": "2e-2 of each gradient's largest entry",
+            "ssd_forward": {"max_abs_err": y_abs,
+                            "worst_row_rel_err": y_row,
+                            "tolerance": f"each row <= {ROW_REL_TOL} of "
+                                         f"the float32 plain version"},
+            "ssd_plain_recompute_gradients_equal": same}
+
+
+def train_parity(card: str) -> dict:
+    """(c): one ``make_train_step`` step at full width, depth cut
+    (:data:`TRAIN_PARITY`), float32 (TF32 off), B 1, S 128, on the card
+    (K2 and K3 on their SIMT variants, twice a layer: the forward and the
+    remat recompute) and on the CPU from one set of parameters: the loss,
+    and the gradients as the first step's ``mu`` ((1 - b1) times the
+    clipped gradient), within rtol = atol = 1e-3 of each leaf's largest
+    entry."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.train import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch, n_layers in TRAIN_PARITY:
+        cfg, on_card, on_cpu = card_and_cpu_models(arch, n_layers)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (1, 129)))
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        step = make_train_step(cfg)
+        k2.reset_launch_count()
+        k3.reset_launch_count()
+        t0 = time.perf_counter()
+        card_state, got = step(init_train_state(cfg, model=on_card),
+                               {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = {"k2": k2.launch_counts(), "k3": k3.launch_counts()}
+        t0 = time.perf_counter()
+        cpu_state, want = step(init_train_state(cfg, model=on_cpu), batch)
+        cpu_s = time.perf_counter() - t0
+        loss_err = abs(float(got["loss"]) - float(want["loss"]))
+        worst, worst_leaf = 0.0, None
+        for name, mu in cpu_state["opt"]["mu"].items():
+            d = (card_state["opt"]["mu"][name].cpu() - mu).abs().max()
+            rel = float(d / mu.abs().max().clamp_min(1e-30))
+            if rel > worst:
+                worst, worst_leaf = rel, name
+        what = f"{arch} {n_layers}-layer train step"
+        n_attn = -(-n_layers // max(cfg.shared_attn_every, 1)) \
+            if cfg.family == "hybrid" else \
+            (n_layers if cfg.family == "dense" else 0)
+        n_ssd = n_layers if cfg.family in ("ssm", "hybrid") else 0
+        # float32: both on their SIMT variants, forward and remat recompute
+        check(launches == {"k2": {"tensor_core": 0, "simt": 2 * n_attn},
+                           "k3": {"tensor_core": 0, "simt": 2 * n_ssd}},
+              f"{what} launched {launches}")
+        check(bool(torch.isfinite(got["loss"])), f"{what}: loss not finite")
+        check(loss_err <= 1e-3 * max(1.0, abs(float(want["loss"]))),
+              f"{what}: loss on the card {float(got['loss'])} against "
+              f"{float(want['loss'])} on the CPU")
+        check(worst <= 1e-3, f"{what}: gradient {worst_leaf} differs by "
+                             f"{worst} of its largest entry")
+        out[arch] = {"n_layers": n_layers, "loss": float(want["loss"]),
+                     "loss_abs_err": loss_err,
+                     "grad_max_err_of_largest": worst,
+                     "worst_leaf": worst_leaf, "launches": launches,
+                     "card_s": card_s, "cpu_s": cpu_s}
+        del on_card, on_cpu, card_state, cpu_state
+        torch.cuda.empty_cache()
+    return {"configs": out,
+            "tolerance": "1e-3 of the loss and of each gradient leaf's "
+                         "largest entry"}
+
+
+def plain_backward_ms(prof) -> dict[str, float]:
+    """Device milliseconds of the kernels launched inside each plain
+    backward (:data:`PLAIN_BACKWARDS`): a kernel record's host operation
+    (by linked correlation id) that starts on the thread and inside the
+    span of such an autograd node's host record."""
+    import bisect
+    events = list(prof.profiler.kineto_results.events())
+    ops, spans = {}, {}
+    for ev in events:
+        if str(ev.device_type()) == "DeviceType.CUDA":
+            continue
+        ops[ev.correlation_id()] = ev
+        for node in PLAIN_BACKWARDS:
+            if ev.name() == f"autograd::engine::evaluate_function: {node}":
+                spans.setdefault(ev.start_thread_id(), []).append(
+                    (ev.start_ns(), ev.end_ns(), node))
+    for held in spans.values():
+        held.sort()
+    starts = {t: [s for s, _, _ in held] for t, held in spans.items()}
+    ms = dict.fromkeys(PLAIN_BACKWARDS, 0.0)
+    for ev in events:
+        if str(ev.device_type()) != "DeviceType.CUDA":
+            continue
+        op = ops.get(ev.linked_correlation_id())
+        if op is None or op.start_thread_id() not in spans:
+            continue
+        held = spans[op.start_thread_id()]
+        i = bisect.bisect_right(starts[op.start_thread_id()],
+                                op.start_ns()) - 1
+        if i >= 0 and op.start_ns() <= held[i][1]:
+            ms[held[i][2]] += ev.duration_ns() / 1e6
+    return ms
+
+
+def profile_train_step(state, arch: str, B: int, kernel: str,
+                       launches: int) -> dict:
+    """One more train step on the run's final state, profiled as
+    :func:`profiled` profiles (a lead-in, up to :data:`PROFILE_TRIES`
+    sessions, none counted that lost a launch of ``kernel``; the step
+    makes ``launches`` of them): device time, idle share, the top
+    kernels, the kernel's share and the plain backwards'
+    (:func:`plain_backward_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import make_train_step
+    cfg = state["params"].cfg
+    step = make_train_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (B, TRAIN_S + 1),
+                           device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(32))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    lost = []
+    for n in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = kernel_rows(prof)
+        lost.append(LEAD_IN - sum(n for k, (_, n) in rows.items()
+                                  if LEAD_IN_KERNEL in k))
+        rows = {k: v for k, v in rows.items() if LEAD_IN_KERNEL not in k}
+        seen = matching(rows, kernel)[1]
+        if seen == launches:
+            plain_ms = plain_backward_ms(prof)
+            PROFILE_LOG.append({"profile": f"the {arch} train step",
+                                "sessions": n, "lead_in_records_lost": lost})
+            break
+        print(f"chip_smoke: profile session {n} of the {arch} train step "
+              f"recorded {seen} of its {launches} {kernel} launches (and "
+              f"lost {lost[-1]} of its {LEAD_IN} lead-in records)",
+              file=sys.stderr, flush=True)
+        del prof
+    else:
+        fail(f"{PROFILE_TRIES} profile sessions of the {arch} train step "
+             f"all lost launch records")
+    del prof
+    busy = sum(ms for ms, _ in rows.values())
+    kernel_ms = matching(rows, kernel)[0]
+    plain = sum(plain_ms.values())
+    top = sorted(((k, ms, n) for k, (ms, n) in rows.items()),
+                 key=lambda r: -r[1])[:10]
+    return {"wall_ms": wall * 1e3, "device_ms": busy,
+            "idle_share": 1.0 - busy / (wall * 1e3),
+            "device_ops": sum(n for _, n in rows.values()),
+            "kernel": kernel, "kernel_ms": kernel_ms,
+            "kernel_share": kernel_ms / busy,
+            "plain_backward_ms": plain_ms,
+            "plain_backward_share": plain / busy,
+            "top": [{"name": k[:80], "device_ms": ms, "launches": n}
+                    for k, ms, n in top]}
+
+
+class TrainRun:
+    """Observes one run of the training launcher in this process
+    (``repro_torch.launch.train.main``): per step the loss, grad norm and
+    lr, the seconds since the previous step ended (the first from the
+    call, so it holds the set-up; a step after a save holds the save),
+    K2's and K3's launches by variant; the peak memory."""
+
+    def __init__(self, after_step=None):
+        from repro_torch.kernels import flash_attention as k2
+        from repro_torch.kernels import ssd_scan as k3
+        self.k2, self.k3 = k2, k3
+        self.steps: list[dict] = []
+        self.after_step = after_step
+
+    def __call__(self, argv: list[str], save_every: int, **hooks):
+        from repro_torch.launch import train as launch_train
+        self.save_every = save_every
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.k2.reset_launch_count()          # the main path's run only
+        self.k3.reset_launch_count()
+        self.t = time.perf_counter()
+        first = len(self.steps)
+        state = launch_train.main(argv, on_step=self.on_step, **hooks)
+        self.peak = torch.cuda.max_memory_allocated()
+        self.steps[first]["after"] = "set-up"
+        return state
+
+    def on_step(self, step: int, state: dict, metrics: dict) -> None:
+        rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec.update(seconds=now - self.t, k2=self.k2.launch_counts(),
+                   k3=self.k3.launch_counts(),
+                   after="save" if self.steps and self.steps[-1]["step"]
+                   % self.save_every == 0 and self.steps[-1]["step"]
+                   == step - 1 else "step")
+        self.steps.append(rec)
+        if self.after_step is not None:
+            self.after_step(step, state)
+        self.k2.reset_launch_count()
+        self.k3.reset_launch_count()
+        self.t = time.perf_counter()
+
+    def clean_seconds(self) -> list[float]:
+        """The seconds of the steps that followed a step with no save."""
+        return [r["seconds"] for r in self.steps if r["after"] == "step"]
+
+
+def train_args(arch: str, B: int, steps: int, save_every: int,
+               ckpt: Path) -> list[str]:
+    return ["--arch", arch, "--full", "--batch", str(B), "--seq",
+            str(TRAIN_S), "--steps", str(steps), "--save-every",
+            str(save_every), "--checkpoint-dir", str(ckpt)]
+
+
+def check_train_steps(what: str, run: TrainRun, k2_want: dict,
+                      k3_want: dict) -> None:
+    for r in run.steps:
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"{what} step {r['step']}: loss {r['loss']}, grad norm "
+              f"{r['grad_norm']}")
+        check(r["k2"] == k2_want and r["k3"] == k3_want,
+              f"{what} step {r['step']} launched K2 {r['k2']} and K3 "
+              f"{r['k3']}, expected {k2_want} and {k3_want}")
+
+
+def train_qwen3(card: str, ckpt: Path) -> dict:
+    """(d): qwen3-0.6b, 28 layers, B 4, S 4,096 through the launcher:
+    :data:`TRAIN_QWEN3_STEPS` steps saving every
+    :data:`TRAIN_SAVE_EVERY`; then the checkpoint past the first save is
+    set aside and a second invocation resumes from the first save to the
+    same end (saving nothing). Checks: the first loss within 0.5 of ln V;
+    every loss and grad norm finite; 56 K2 launches a step (28 layers'
+    forward and remat recompute), all tensor core; the restored tensors
+    equal bitwise those the first run held at the save; the resumed steps'
+    losses within :data:`TRAIN_RESUME_TOL` of the first run's."""
+    import math
+    import shutil
+    from repro_torch.configs import SHAPES, get_config
+    cfg = get_config("qwen3-0.6b")
+    arch_dir = ckpt / cfg.name
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = train_args(cfg.name, TRAIN_QWEN3_B, TRAIN_QWEN3_STEPS,
+                      TRAIN_SAVE_EVERY, ckpt)
+    held = {}
+
+    def hold(step, state):
+        if step == TRAIN_SAVE_EVERY:        # what the first save writes
+            held["state"] = flat_state(state)
+
+    run = TrainRun(after_step=hold)
+    state = run(argv, TRAIN_SAVE_EVERY)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    del state
+    torch.cuda.empty_cache()
+    first = list(run.steps)
+    peak = run.peak
+    # the restart: the checkpoint past the first save set aside
+    aside = ckpt / "aside"
+    for p in arch_dir.glob("step_*"):
+        if int(p.name.split("_")[1].split(".")[0]) > TRAIN_SAVE_EVERY:
+            aside.mkdir(parents=True, exist_ok=True)
+            p.rename(aside / p.name)
+    same = {}
+
+    def on_restore(state, manifest):
+        got = flat_state(state)
+        same["keys"] = sorted(got) == sorted(held["state"])
+        same["bitwise"] = same["keys"] and all(
+            torch.equal(got[k], held["state"][k]) for k in got)
+        same["step"] = manifest["step"]
+        del got
+        held.clear()
+    # the restart saves nothing (each save writes 8.5 GB, about 8 s)
+    resumed = TrainRun()
+    state = resumed(train_args(cfg.name, TRAIN_QWEN3_B, TRAIN_QWEN3_STEPS,
+                               TRAIN_QWEN3_STEPS + 1, ckpt),
+                    TRAIN_QWEN3_STEPS + 1, on_restore=on_restore)
+    peak = max(peak, resumed.peak)
+    k2_want = {"tensor_core": 2 * cfg.n_layers, "simt": 0}
+    what = f"{cfg.name} training"
+    check(abs(first[0]["loss"] - math.log(cfg.vocab_size)) <= 0.5,
+          f"{what}: first loss {first[0]['loss']}, ln V "
+          f"{math.log(cfg.vocab_size)}")
+    check_train_steps(what, run, k2_want, {"tensor_core": 0, "simt": 0})
+    check_train_steps(f"{what} (resumed)", resumed, k2_want,
+                      {"tensor_core": 0, "simt": 0})
+    check(same.get("bitwise") is True and same["step"] == TRAIN_SAVE_EVERY,
+          f"{what}: the restored state is not the one saved at step "
+          f"{TRAIN_SAVE_EVERY}: {same}")
+    check([r["step"] for r in resumed.steps]
+          == list(range(TRAIN_SAVE_EVERY + 1, TRAIN_QWEN3_STEPS + 1)),
+          f"{what}: the restart ran steps "
+          f"{[r['step'] for r in resumed.steps]}")
+    gaps = [abs(a["loss"] - b["loss"]) for a, b in
+            zip(resumed.steps, first[TRAIN_SAVE_EVERY:])]
+    check(max(gaps) <= TRAIN_RESUME_TOL,
+          f"{what}: resumed losses differ by {gaps}")
+    clean = run.clean_seconds() + resumed.clean_seconds()
+    median = float(np.median(clean))
+    profile = profile_train_step(state, cfg.name, TRAIN_QWEN3_B,
+                                 K2_KERNEL, 2 * cfg.n_layers)
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    spec = SHAPES["train_4k"]
+    return {"config": f"{cfg.name}, {cfg.n_layers} layers, full width, "
+                      f"bf16 compute over float32 masters, remat "
+                      f"{cfg.remat}",
+            "params": n_params, "B": TRAIN_QWEN3_B, "S": TRAIN_S,
+            "reduced": {"global_batch": f"{spec.global_batch} -> "
+                                        f"{TRAIN_QWEN3_B}",
+                        "why": "one card and the run's time limit"},
+            "ln_V": math.log(cfg.vocab_size), "steps": first,
+            "resumed_steps": resumed.steps, "resumed_loss_gaps": gaps,
+            "resume_tolerance": TRAIN_RESUME_TOL,
+            "restored_bitwise": same["bitwise"],
+            "median_step_s": median, "clean_step_s": clean,
+            "tokens_per_s": TRAIN_QWEN3_B * TRAIN_S / median,
+            "peak_mem_bytes": peak,
+            "k2_launches_per_step": [r["k2"] for r in first + resumed.steps],
+            "k2_launches_expected": k2_want, "profile": profile}
+
+
+def flat_state(state: dict) -> dict[str, torch.Tensor]:
+    """Host copies of every tensor of a train state, by path (on the host,
+    so that the peak device memory stays the run's own)."""
+    out = {f"params/{n}": p.detach().cpu()
+           for n, p in state["params"].named_parameters()}
+    for m in ("mu", "nu"):
+        out.update({f"{m}/{n}": t.cpu() for n, t in state["opt"][m].items()})
+    out["count"] = state["opt"]["count"].cpu()
+    out["step"] = state["step"].cpu()
+    return out
+
+
+def train_mamba2(card: str, ckpt: Path) -> dict:
+    """(e): mamba2-2.7b, 64 layers, B 1, S 4,096, microbatches 1, through
+    the launcher (no save within the run): every loss and grad norm
+    finite, 128 K3 launches a step (the forward and the remat
+    recompute), all tensor core, no K2."""
+    import math
+    import shutil
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-2.7b")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    run = TrainRun()
+    state = run(train_args(cfg.name, TRAIN_MAMBA2_B, TRAIN_MAMBA2_STEPS,
+                           TRAIN_MAMBA2_STEPS + 1, ckpt)
+                + ["--microbatches", "1"], TRAIN_MAMBA2_STEPS + 1)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    k3_want = {"tensor_core": 2 * cfg.n_layers, "simt": 0}
+    check_train_steps(f"{cfg.name} training", run,
+                      {"tensor_core": 0, "simt": 0}, k3_want)
+    clean = run.clean_seconds()
+    median = float(np.median(clean))
+    profile = profile_train_step(state, cfg.name, TRAIN_MAMBA2_B,
+                                 K3_KERNELS["tensor_core"],
+                                 2 * cfg.n_layers)
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"config": f"{cfg.name}, {cfg.n_layers} layers, full width, "
+                      f"bf16 compute over float32 masters, remat "
+                      f"{cfg.remat}",
+            "params": n_params, "B": TRAIN_MAMBA2_B, "S": TRAIN_S,
+            "ln_V": math.log(cfg.vocab_size), "steps": run.steps,
+            "median_step_s": median, "clean_step_s": clean,
+            "tokens_per_s": TRAIN_MAMBA2_B * TRAIN_S / median,
+            "peak_mem_bytes": run.peak,
+            "k3_launches_per_step": [r["k3"] for r in run.steps],
+            "k3_launches_expected": k3_want, "profile": profile}
+
+
+def phase_train(card: str) -> dict:
+    """Phase ``train``: (a) to (e) of the module docstring."""
+    t0 = time.perf_counter()
+    out = {"card": card, "lse": train_lse(card)}
+    out["grads"] = train_grads(card)
+    out["parity"] = train_parity(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ckpt = ROOT / "build" / "train_ckpt"
+    out["qwen3"] = train_qwen3(card, ckpt)
+    out["mamba2"] = train_mamba2(card, ckpt)
+    out["phase_s"] = time.perf_counter() - t0
+    emit("train", **out)
+    return out
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  phase: dict) -> dict:
     """One kernel of the table line; ``variant`` names the one the main
@@ -4485,6 +5035,7 @@ def run_all(b2: subprocess.Popen) -> int:
     fleet = phase_fleet(card, built_b[0], full, env)
     shard = phase_shard(card, built_b[0], full, env)
     phase_serve(card)
+    train = phase_train(card)
     # the entry's launches and times are the tensor-core variant's at the
     # zamba2 prefill (N 64); its N 128 instantiation's at mamba2's shape
     # and the SIMT variant's there (float32, off both prefills) stand
@@ -4498,7 +5049,9 @@ def run_all(b2: subprocess.Popen) -> int:
     k3_entry.update(
         launches_by_path={"zamba2-7b prefill": pre["k3_launches_by_variant"],
                           "mamba2-2.7b prefill":
-                              pre_m["k3_launches_by_variant"]},
+                              pre_m["k3_launches_by_variant"],
+                          "mamba2-2.7b train steps, counted a step":
+                              train["mamba2"]["k3_launches_per_step"]},
         tc_at_mamba2_shape={
             "launches": pre_m["k3_launches_by_variant"]["tensor_core"],
             "max_abs_err": tc_m["errors"]["tc_max_abs_err"],
@@ -4592,13 +5145,22 @@ def run_all(b2: subprocess.Popen) -> int:
         uncached_at_same_step={
             "ms": optins["k1_cached"]["uncached_ms"],
             "device_ms": optins["k1_cached"]["uncached_device_ms"]})
+    # K2's launches and times are the zamba2 prefill's; the launches the
+    # qwen3 training run counted on each step (with the lse) stand beside
+    k2_entry = kernel_entry("flash_attention", "flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:87",
+                            pre["k2_launches"], k2)
+    k2_entry.update(launches_by_path={
+        "zamba2-7b prefill": pre["k2_launches"],
+        "qwen3-0.6b train steps, with the lse, counted a step":
+            train["qwen3"]["k2_launches_per_step"]},
+        lse_max_abs_err={k: v["max_abs_err"]
+                         for k, v in train["lse"]["cases"].items()})
     emit("profiles", sessions=PROFILE_LOG)
     print(json.dumps({"kernels": [
         k1_entry,
         k1_cached_entry,
-        kernel_entry("flash_attention", "flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:87",
-                     pre["k2_launches"], k2),
+        k2_entry,
         k3_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,12 @@
 // masks are causal, sliding window and k_pos < Tk, a masked logit is
 // NEG_INF = -1e30 (not -inf: exp(-inf - -inf) is NaN), the state
 // m / l / acc is float32, and the output is acc / max(l, 1e-30) in q's
-// dtype.
+// dtype.  On request (a non-null lse pointer) both variants also write
+// the float32 log-sum-exp of each query row, laid out (B, H, Tq): the
+// natural log of the sum of exp over the scaled, capped, masked logits,
+// m + log(max(l, 1e-30)) as the reference's _fa_forward keeps it for the
+// backward pass (src/repro/models/layers.py:129-155).  A null pointer
+// writes nothing: the prefill's launches are the same as before.
 //
 // Bound on Hopper: at the zamba2-7b prefill shape (B 1, T 4096, 32 heads,
 // Dh 112, bf16, causal) one call does about 1.2e11 operations (half of
@@ -113,6 +118,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Tq), or null
   int B, Tq, Tk, H, KV, Dh;
   long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh;
   float scale;
@@ -248,6 +254,10 @@ flash_fwd_kernel(const Params p) {
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty * 4 + i;
     if (t >= p.Tq) continue;
+    // every thread of the row holds its m and l (the folds above)
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Tq + t] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     T* orow = o + ((static_cast<long long>(b) * p.Tq + t) * p.H + h) * Dh;
 #pragma unroll
@@ -299,6 +309,7 @@ constexpr int kBK = 128;                   // keys per tile
 constexpr int kStages = 3;                 // depth of the K / V ring
 constexpr int kConsumers = 256;            // two warpgroups of 64 rows
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr float kLn2 = 0.6931471805599453f;
 
 // NB boxes of 64 columns cover Dh; Q, and each stage of K and of V, is
 // NB boxes of [rows][64] bf16 with the 128-byte swizzle, 1024-aligned
@@ -314,6 +325,7 @@ static_assert(Layout<2>::kBytes <= 232448, "shared memory of one block");
 
 struct Params {
   void* o;
+  float* lse;  // (B, H, Tq), or null
   int Tq, Tk, H, KV, Dh;
   float scale;
   int causal;
@@ -580,6 +592,13 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  // m is in log2 units (scale2): the natural log-sum-exp is m ln 2 + ln l.
+  // The row's four threads hold the same m and, after the folds above, l.
+  if (p.lse != nullptr && t4 == 0) {
+    float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.Tq;
+    if (row_a < p.Tq) lse[row_a] = m_a * kLn2 + logf(fmaxf(l_a, 1e-30f));
+    if (row_b < p.Tq) lse[row_b] = m_b * kLn2 + logf(fmaxf(l_b, 1e-30f));
+  }
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o);
   const long long orow_a =
       ((static_cast<long long>(b) * p.Tq + row_a) * p.H + h) * p.Dh;
@@ -623,18 +642,20 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16.  q (B, Tq, H, Dh) and k / v (B, Tk, KV,
 // Dh) with the given strides and unit stride over Dh; o (B, Tq, H, Dh)
-// contiguous.  window is 1 << 30 for none; cap is read when has_cap.
+// contiguous; lse (B, H, Tq) float32 contiguous, or null for none.
+// window is 1 << 30 for none; cap is read when has_cap.
 int flash_attention_fwd(int dtype, const void* q, const void* k,
-                        const void* v, void* o, int B, int Tq, int Tk, int H,
-                        int KV, int Dh, long long sqb, long long sqt,
-                        long long sqh, long long skb, long long skt,
-                        long long skh, long long svb, long long svt,
-                        long long svh, float scale, int causal, int window,
-                        int has_cap, float cap, void* stream) {
+                        const void* v, void* o, float* lse, int B, int Tq,
+                        int Tk, int H, int KV, int Dh, long long sqb,
+                        long long sqt, long long sqh, long long skb,
+                        long long skt, long long skh, long long svb,
+                        long long svt, long long svh, float scale,
+                        int causal, int window, int has_cap, float cap,
+                        void* stream) {
   if (B <= 0 || Tq <= 0) return 0;
-  const Params p{q,   k,   v,   o,   B,   Tq,    Tk,     H,      KV,
-                 Dh,  sqb, sqt, sqh, skb, skt,   skh,    svb,    svt,
-                 svh, scale, causal, window, has_cap, cap};
+  const Params p{q,   k,   v,   o,   lse,   B,      Tq,     Tk,      H,
+                 KV,  Dh,  sqb, sqt, sqh,   skb,    skt,    skh,     svb,
+                 svt, svh, scale, causal, window, has_cap, cap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(p, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(p, s);
@@ -647,13 +668,13 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
 // Returns cudaErrorInvalidValue for a call outside that rule and
 // cudaErrorNotSupported if a tensor map cannot be encoded.
 int flash_attention_fwd_tc(int dtype, const void* q, const void* k,
-                           const void* v, void* o, int B, int Tq, int Tk,
-                           int H, int KV, int Dh, long long sqb,
-                           long long sqt, long long sqh, long long skb,
-                           long long skt, long long skh, long long svb,
-                           long long svt, long long svh, float scale,
-                           int causal, int window, int has_cap, float cap,
-                           void* stream) {
+                           const void* v, void* o, float* lse, int B,
+                           int Tq, int Tk, int H, int KV, int Dh,
+                           long long sqb, long long sqt, long long sqh,
+                           long long skb, long long skt, long long skh,
+                           long long svb, long long svt, long long svh,
+                           float scale, int causal, int window,
+                           int has_cap, float cap, void* stream) {
   if (B <= 0 || Tq <= 0) return 0;
   if (dtype != 1 || Dh < 16 || Dh > 128 || Dh % 16 || KV < 1 || H % KV ||
       Tk < 1)
@@ -663,8 +684,8 @@ int flash_attention_fwd_tc(int dtype, const void* q, const void* k,
       !tc::encode(&mk, k, Dh, KV, Tk, B, skh, skt, skb, tc::kBK) ||
       !tc::encode(&mv, v, Dh, KV, Tk, B, svh, svt, svb, tc::kBK))
     return static_cast<int>(cudaErrorNotSupported);
-  const tc::Params p{o, Tq, Tk, H, KV, Dh, scale, causal, window, has_cap,
-                     cap};
+  const tc::Params p{o,     lse,    Tq,     Tk,      H,  KV,
+                     Dh,    scale,  causal, window, has_cap, cap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh / 16) {
     case 1: return tc::launch<1>(mq, mk, mv, p, B, s);

@@ -17,7 +17,10 @@ alone:
 * ``"simt"`` (``flash_attention_fwd``) for float32 and every other head
   width (Dh 256, Dh not a multiple of 16).
 
-Each variant counts its own launches (:func:`launch_counts`).
+Each variant counts its own launches (:func:`launch_counts`).  Either
+writes, on request (``with_lse=True``), the float32 log-sum-exp of each
+query row, (B, H, Tq): the residual the training backward reads
+(:class:`repro_torch.kernels.ops.FlashAttention`).
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ def _kernel(variant: str):
     if fn.argtypes is None:             # pointers must not pass as int
         ll, i, f, p = (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                        ctypes.c_void_p)
-        fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i,
                        ll, ll, ll, ll, ll, ll, ll, ll, ll,
                        f, i, i, i, f, p]
         fn.restype = ctypes.c_int
@@ -83,12 +86,16 @@ def _kernel(variant: str):
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
                         cap: float | None = None,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None, with_lse: bool = False
+                        ) -> torch.Tensor | tuple[torch.Tensor,
+                                                  torch.Tensor]:
     """Launch K2 on CUDA tensors.
 
     q (B, Tq, H, Dh), k/v (B, Tk, KV, Dh) with KV dividing H (head h
     reads kv head h // (H/KV)), any strides with unit stride over Dh →
-    (B, Tq, H, Dh) contiguous, in q's dtype.  float32 or bfloat16,
+    (B, Tq, H, Dh) contiguous, in q's dtype; with ``with_lse`` also the
+    rows' float32 log-sum-exp (B, H, Tq) as a second output (the natural
+    log over the scaled, capped, masked logits).  float32 or bfloat16,
     Dh ≤ 256, window ≥ 1; :func:`route` picks the variant.  Raises on
     anything else, and on a tensor-core call that TMA cannot read; never
     falls back to the plain version or to the other variant."""
@@ -126,11 +133,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              t.element_size())
     scale = 1.0 / math.sqrt(Dh) if scale is None else float(scale)
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     fn = _kernel(variant)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), B, Tq, Tk, H, KV, Dh,
+                out.data_ptr(), None if lse is None else lse.data_ptr(),
+                B, Tq, Tk, H, KV, Dh,
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
@@ -140,4 +150,4 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention {variant} kernel launch "
                            f"failed: CUDA error {rc}")
     _launches[variant] += 1
-    return out
+    return out if lse is None else (out, lse)

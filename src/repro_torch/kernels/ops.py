@@ -14,6 +14,21 @@ failed build or launch.
   the reduction alone over a legality mask;
 * K2 :func:`flash_attention` — attention forward (model layout);
 * K3 :func:`ssd_scan` — the Mamba-2 SSD chunked scan (model layout).
+
+Training.  When an input of K2 or K3 requires a gradient (and grad mode
+is on), the call goes through an autograd function, :class:`FlashAttention`
+or :class:`SSDScan`, whose forward is the same kernel (or, on the CPU,
+the same plain version) and whose backward is plain PyTorch on every
+device.  The reference's backwards are ``jnp`` outside any Pallas
+kernel: attention's is the custom VJP ``_flash_bwd_impl``
+(``src/repro/models/layers.py:175-208``), here
+:func:`.ref.flash_attention_bwd_plain` over the forward's saved ``out``
+and log-sum-exp (K2 writes it); the SSD scan's is autodiff of
+``ssd_chunked`` under ``jax.checkpoint``, which recomputes the jnp
+forward inside the backward (``src/repro/models/ssm.py:133-141``), here
+:func:`.ref.ssd_chunked` recomputed under ``torch.enable_grad()`` and
+differentiated.  Hand-written backward kernels are later performance
+work, not a port of a TPU kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import flash_attention_fwd
-from .ref import (flash_attention_online, masked_select_ref,
+from .ref import (flash_attention_bwd_plain, flash_attention_online,
+                  masked_select_ref,
                   select_rows_lanes_ref, select_rows_ref,
                   select_rows_window_ref, ssd_chunked)
 from .select_move import SelectRows, SelectRowsWindow, masked_select_fwd
@@ -30,6 +46,10 @@ from .ssd_scan import ssd_scan_fwd
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def _differentiated(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def masked_select(valid: torch.Tensor, util: torch.Tensor
@@ -97,7 +117,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_block: int = 512) -> torch.Tensor:
     """Model layout: q (B, T, H, Dh), k/v (B, Tk, KV, Dh) → (B, T, H, Dh)
     in q's dtype.  GQA k/v serve H // KV query heads each.  ``kv_block``
-    is the plain version's key block; the kernel tiles by its own."""
+    is the plain version's key block; the kernel tiles by its own.  A
+    call with an input that requires a gradient goes through
+    :class:`FlashAttention`."""
+    if _differentiated(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, cap, scale,
+                                    kv_block)
     if _on_cpu(q, k, v):
         return flash_attention_online(q, k, v, causal=causal, window=window,
                                       cap=cap, scale=scale,
@@ -111,7 +136,72 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = 128) -> torch.Tensor:
     """Model layout: x (B, T, H, P), dt (B, T, H), A (H,), B/C
     (B, T, G, N) → y (B, T, H, P) in x's dtype; ``min(chunk, T)`` must
-    divide T."""
+    divide T.  A call with an input that requires a gradient goes through
+    :class:`SSDScan`."""
+    if _differentiated(x, dt, A, Bm, Cm):
+        return SSDScan.apply(x, dt, A, Bm, Cm, chunk)
     if _on_cpu(x, dt, A, Bm, Cm):
         return ssd_chunked(x, dt, A, Bm, Cm, min(chunk, x.shape[1]))[0]
     return ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 with a backward pass.  Forward: on CUDA tensors K2 with its
+    log-sum-exp; on the CPU the plain online version, which returns the
+    float32 ``out`` before its cast, as the reference's ``_fa_forward``
+    does.  It saves q, k, v, out and lse.  Backward:
+    :func:`.ref.flash_attention_bwd_plain` on either device.  On the card
+    ``out`` is K2's output in q's dtype, cast to float32 there: in bf16,
+    ``delta = Σ dout·out`` carries out's rounding, which the reference's
+    float32 ``out`` does not (``chip_smoke.py`` phase ``train`` (b) and
+    ``tests/test_torch_cuda.py`` state what it costs)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap, scale, kv_block):
+        kw = dict(causal=causal, window=window, cap=cap, scale=scale)
+        if _on_cpu(q, k, v):
+            out32, lse = flash_attention_online(q, k, v, kv_block=kv_block,
+                                                with_lse=True, **kw)
+            out = out32.to(q.dtype)
+        else:
+            out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+            out32 = out
+        ctx.save_for_backward(q, k, v, out32, lse)
+        ctx.kw = dict(kw, kv_block=kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                               **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+class SSDScan(torch.autograd.Function):
+    """K3 with a backward pass.  Forward: K3 on CUDA tensors, the plain
+    chunk loop on the CPU; it saves the inputs.  Backward: the plain
+    :func:`.ref.ssd_chunked` recomputed from them under
+    ``torch.enable_grad()`` and differentiated with
+    ``torch.autograd.grad`` (the reference's ``jax.checkpoint`` of the
+    superchunk body recomputes its jnp forward the same way)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        if _on_cpu(x, dt, A, Bm, Cm):
+            return ssd_chunked(x, dt, A, Bm, Cm, min(chunk, x.shape[1]))[0]
+        return ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y = ssd_chunked(*inputs, min(ctx.chunk, inputs[0].shape[1]))[0]
+        grads = iter(torch.autograd.grad(y, wanted, dy))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in inputs), None)

@@ -6,7 +6,10 @@ planner step's selection over ``select_rows_masks``, ending in
 window form ``select_rows_window_ref`` (the sharded engine's) and
 ``masked_select_ref``, K2 ``flash_attention_online`` (online softmax
 over KV blocks) and K3 ``ssd_chunked`` (the chunk loop), the same
-schedules as the reference model's own code.
+schedules as the reference model's own code.  The training backward of
+attention, ``flash_attention_bwd_plain``, is the reference's
+``_flash_bwd_impl``: plain on every device, as it is ``jnp`` outside any
+Pallas kernel there.
 
 What the tests and ``chip_smoke.py`` hold the kernels to: K2
 ``flash_attention_ref`` (one full softmax) and K3 ``ssd_scan_ref`` (the
@@ -332,13 +335,14 @@ def flash_attention_online(q: torch.Tensor, k: torch.Tensor,
                            window: int | None = None,
                            cap: float | None = None,
                            scale: float | None = None,
-                           kv_block: int = 512) -> torch.Tensor:
+                           kv_block: int = 512, with_lse: bool = False):
     """Online softmax over KV blocks with float32 state, the plain version
-    of K2 that the model runs on the CPU: the reference's ``_fa_forward``
-    without the lse it keeps for the backward pass.
+    of K2 that the model runs on the CPU: the reference's ``_fa_forward``.
 
     q (B, Tq, H, Dh), k/v (B, Tk, KV, Dh) → (B, Tq, H, Dh) in q's dtype;
-    query head h reads KV head h // (H/KV)."""
+    query head h reads KV head h // (H/KV).  With ``with_lse``, →
+    (out (B, Tq, H, Dh) float32, before the cast; lse (B, H, Tq) float32,
+    ``m + log(s)``), the residuals the training backward reads."""
     B, Tq, H, Dh = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -368,8 +372,71 @@ def flash_attention_online(q: torch.Tensor, k: torch.Tensor,
         acc = acc * scale_old[..., None] + torch.einsum("btkgu,bukd->btkgd",
                                                         p, vblk)
         m = m_new
-    out = acc / torch.clamp(s, min=1e-30)[..., None]
-    return out.reshape(B, Tq, H, Dh).to(q.dtype)
+    s = torch.clamp(s, min=1e-30)
+    out = (acc / s[..., None]).reshape(B, Tq, H, Dh)
+    if with_lse:
+        lse = (m + torch.log(s)).reshape(B, Tq, H).transpose(1, 2)
+        return out, lse.contiguous()
+    return out.to(q.dtype)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True,
+                              window: int | None = None,
+                              cap: float | None = None,
+                              scale: float | None = None,
+                              kv_block: int = 512
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Attention's backward pass from the forward's residuals, the
+    reference's ``_flash_bwd_impl`` (``src/repro/models/layers.py:175-208``):
+    per KV block, the probabilities recomputed from the saved ``lse``,
+    ``p = exp(capped − lse)``; ``ds = p (dp − delta)`` with
+    ``delta = Σ dout·out``, times the softcap's derivative ``1 − t²``
+    (t the masked capped logit over the cap), 0 where masked.
+
+    Model layout: q/out/dout (B, Tq, H, Dh), k/v (B, Tk, KV, Dh), lse
+    (B, H, Tq) float32 → (dq, dk, dv) in q's, k's and v's dtypes; dk and
+    dv sum each KV head's H/KV query heads.  Every product is float32."""
+    B, Tq, H, Dh = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    window = NO_WINDOW if window is None else window
+    kv_block = min(kv_block, Tk)
+    qf = q.float().reshape(B, Tq, KV, G, Dh) * scale
+    do = dout.float().reshape(B, Tq, KV, G, Dh)
+    delta = (do * out.float().reshape(B, Tq, KV, G, Dh)).sum(dim=-1)
+    lse = lse.transpose(1, 2).reshape(B, Tq, KV, G)[..., None]
+    q_pos = torch.arange(Tq, device=q.device)
+    dq = torch.zeros((B, Tq, KV, G, Dh), dtype=torch.float32,
+                     device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, Tk, kv_block):
+        kblk = k[:, k0:k0 + kv_block].float()
+        vblk = v[:, k0:k0 + kv_block].float()
+        kv_pos = k0 + torch.arange(kblk.shape[1], device=q.device)
+        mask = attention_mask(q_pos, kv_pos, causal, window,
+                              Tk)[None, :, None, None, :]
+        capped = torch.einsum("btkgd,bukd->btkgu", qf, kblk)
+        if cap is not None:
+            capped = cap * torch.tanh(capped / cap)
+        capped = torch.where(mask, capped, NEG_INF)
+        p = torch.exp(capped - lse)
+        dvs.append(torch.einsum("btkgu,btkgd->bukd", p, do))
+        ds = p * (torch.einsum("btkgd,bukd->btkgu", do, vblk)
+                  - delta[..., None])
+        if cap is not None:                                 # d softcap
+            t = capped / cap
+            ds = ds * (1.0 - t * t)
+        ds = torch.where(mask, ds, 0.0)
+        dq = dq + torch.einsum("btkgu,bukd->btkgd", ds, kblk)
+        dks.append(torch.einsum("btkgu,btkgd->bukd", ds, qf))
+    return ((dq * scale).reshape(B, Tq, H, Dh).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
@@ -395,10 +462,14 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
         Bb = Bm[:, t0:t0 + chunk].float().repeat_interleave(rep, dim=2)
         Cb = Cm[:, t0:t0 + chunk].float().repeat_interleave(rep, dim=2)
         acum = torch.cumsum(dtb * A[None, None, :], dim=1)      # inclusive
-        # intra-chunk (dual quadratic form); the decay is selected, never
-        # multiplied, above the diagonal, where its exponent is positive
+        # intra-chunk (dual quadratic form).  Above the diagonal the
+        # exponent is positive and overflows at full width (mamba2: A -16,
+        # dt 0.1, 128 tokens), so it is masked to -inf before the exp:
+        # the same values as the reference's where(tri, exp(L), 0), whose
+        # gradient there is 0 · inf = NaN (src/repro/models/ssm.py:116-118)
         Lmat = acum[:, :, None, :] - acum[:, None, :, :]        # (B,Q,Q,H)
-        Lmat = torch.where(tri[None, :, :, None], torch.exp(Lmat), 0.0)
+        Lmat = torch.exp(torch.where(tri[None, :, :, None], Lmat,
+                                     float("-inf")))
         scores = torch.einsum("bthn,buhn->btuh", Cb, Bb) * Lmat
         scores = scores * dtb[:, None, :, :]                    # dt_u
         y_intra = torch.einsum("btuh,buhp->bthp", scores, xb)

@@ -1,5 +1,6 @@
 """Layer primitives: norms, rotary embeddings, attention (GQA /
-sliding-window / softcap / qk-norm) and the gated MLP.
+sliding-window / softcap / qk-norm), the gated MLP and the chunked
+cross-entropy loss.
 
 Functions take parameters as a mapping (``p["wq"]``) laid out as the
 reference's parameter tree; parameters are float32 and are cast to the
@@ -14,6 +15,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, NO_WINDOW, attention_mask
@@ -216,3 +218,52 @@ def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g = (x @ p["w_gate"].to(x.dtype)).float()
     act = F.silu(g) if cfg.mlp_act == "silu" else F.gelu(g, approximate="tanh")
     return (h * act.to(x.dtype)) @ p["w_out"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+
+
+def _xent_chunk(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                final_softcap: float | None):
+    """One chunk's (summed NLL float32, valid label count)."""
+    logits = softcap((h @ w.T).float(), final_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    valid = labels >= 0
+    return torch.where(valid, lse - gold, 0.0).sum(), valid.sum()
+
+
+def chunked_softmax_xent(hidden: torch.Tensor, w_unembed: torch.Tensor,
+                         labels: torch.Tensor, cfg: ModelConfig,
+                         final_softcap: float | None = None
+                         ) -> torch.Tensor:
+    """Sequence-chunked cross entropy, mean NLL over the labels that are
+    not -1: hidden (B, S, D), w_unembed (V, D), labels (B, S) → a float32
+    scalar.  The unembedding is cast to hidden's dtype once; S is padded
+    to a multiple of ``cfg.loss_chunk`` with label -1; each chunk's
+    logits are float32 and soft-capped.  Under grad mode each chunk runs
+    under ``torch.utils.checkpoint``, as the reference's scan body runs
+    under ``nothing_saveable``: the backward recomputes a chunk's
+    (B, chunk, V) logits instead of holding every chunk's."""
+    B, S, D = hidden.shape
+    chunk = min(cfg.loss_chunk, S)
+    n = -(-S // chunk)
+    w = w_unembed.to(hidden.dtype)
+    labels = labels.long()
+    pad = n * chunk - S
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    remat = torch.is_grad_enabled()
+    for i in range(0, n * chunk, chunk):
+        args = (hidden[:, i:i + chunk], w, labels[:, i:i + chunk],
+                final_softcap)
+        nll, valid = (checkpoint(_xent_chunk, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if remat else _xent_chunk(*args))
+        total = total + nll
+        count = count + valid
+    return total / torch.clamp(count, min=1)

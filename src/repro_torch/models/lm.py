@@ -1,21 +1,31 @@
-"""Language-model assembly: the prefill trunk and the decode step as
-``nn.Module``s.
+"""Language-model assembly: the training loss, the prefill trunk and the
+decode step as ``nn.Module``s.
 
 Ported families: the SSM+shared-attention hybrid (zamba2), the
 attention-free SSD stack (mamba2) and the dense decoder without MoE.
 MoE, encoder–decoder and non-token inputs raise ``NotImplementedError``
-(ROADMAP.md queue 1, item 9(d)).  An :class:`LM` owns one module per
-layer — an :class:`SSDBlock` or an :class:`AttnMLPBlock` — and, for the
-hybrid, one shared :class:`AttnMLPBlock` applied before every
+(ROADMAP.md queue 1, item 9(d)).  An :class:`LM` owns one
+:class:`ParamTree` per layer — an SSD layer's (:func:`ssd_block`) or an
+attention and MLP layer's (:func:`attn_mlp_block`) — and, for the
+hybrid, one shared attention and MLP block applied before every
 ``shared_attn_every``-th layer.  Parameters are float32, named as the
 reference's parameter tree (``layers.3.ssm.in_z`` is the reference's
 ``layers/ssm/in_z[3]``), and cast to ``cfg.dtype`` at each use.
 
 Entry points: :func:`build_model` (seeded random weights) or
 :func:`repro_torch.models.convert.params_from_numpy` (the reference's
-weights), then :func:`prefill` — last-token logits — or
-:func:`init_cache` and :func:`decode_step`, one token at a time against
-static-shape caches (the serving path, :mod:`repro_torch.serve.engine`).
+weights), then :func:`loss_fn` — the training loss, on the model's own
+parameters or on a dict of compute tensors in their place (the train
+step's, :mod:`repro_torch.train`) — :func:`prefill` — last-token logits
+— or :func:`init_cache` and :func:`decode_step`, one token at a time
+against static-shape caches (the serving path,
+:mod:`repro_torch.serve.engine`).
+
+The forward reads its parameters from a tree: the :class:`LM` itself
+(``model["layers"][3]["ssm"]["in_z"]``) or :func:`param_tree`'s nesting
+of a flat dict of tensors (``loss_fn``'s ``params``).  Under grad mode
+the training forward rematerialises each layer as ``cfg.remat`` says
+(:func:`_remat`).
 """
 
 from __future__ import annotations
@@ -24,13 +34,15 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 
 from .common import ModelConfig
 from .layers import (NO_WINDOW, attn_apply, attn_params_shape,
-                     attn_ring_step, mlp_apply, mlp_params_shape, rms_norm,
-                     softcap)
+                     attn_ring_step, chunked_softmax_xent, mlp_apply,
+                     mlp_params_shape, rms_norm, softcap)
 from .ssm import ssm_apply, ssm_cache_init, ssm_params_shape
 
 _NORMS = ("ln", "ln1", "ln2", "ln_x", "final_norm", "out_norm", "q_norm",
@@ -103,52 +115,38 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
 
-class SSDBlock(ParamTree):
-    """One Mamba-2 layer: ``x + ssm(rms_norm(x))``."""
-
-    def __init__(self, cfg: ModelConfig, device: torch.device):
-        super().__init__(block_shapes(cfg), device)
-        self.cfg = cfg
-
-    def forward(self, x: torch.Tensor, positions=None, window=None,
-                cache=None) -> torch.Tensor:
-        """``positions`` and ``window`` are the attention blocks'; an SSD
-        layer has neither.  ``cache`` = (ssd, conv), the layer's decode
-        state, which a decode token advances in place."""
-        h, new = ssm_apply(self["ssm"], rms_norm(x, self["ln"],
-                                                 self.cfg.norm_eps),
-                           self.cfg, cache=cache)
-        if cache is not None:
-            for held, state in zip(cache, new):
-                held.copy_(state)
-        return x + h
+def ssd_block(p, x: torch.Tensor, cfg: ModelConfig, positions=None,
+              window=None, cache=None) -> torch.Tensor:
+    """One Mamba-2 layer over parameters ``p``: ``x + ssm(rms_norm(x))``.
+    ``positions`` and ``window`` are the attention blocks'; an SSD layer
+    has neither.  ``cache`` = (ssd, conv), the layer's decode state, which
+    a decode token advances in place."""
+    h, new = ssm_apply(p["ssm"], rms_norm(x, p["ln"], cfg.norm_eps), cfg,
+                       cache=cache)
+    if cache is not None:
+        for held, state in zip(cache, new):
+            held.copy_(state)
+    return x + h
 
 
-class AttnMLPBlock(ParamTree):
-    """Attention then gated MLP, each residual around an RMS norm: a
-    dense layer, or zamba2's shared block."""
-
-    def __init__(self, cfg: ModelConfig, device: torch.device):
-        super().__init__(shared_block_shapes(cfg), device)
-        self.cfg = cfg
-
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                window: int | None = None, cache=None) -> torch.Tensor:
-        """``cache`` = (k, v, length), the layer's decode cache, written
-        in place: a ring for an all-sliding-window config, else a linear
-        buffer (:func:`~.layers.attn_apply`)."""
-        eps = self.cfg.norm_eps
-        hn = rms_norm(x, self["ln1"], eps)
-        if cache is not None and _rolling(self.cfg):
-            h, _ = attn_ring_step(self["attn"], hn, self.cfg,
-                                  positions=positions, cache=cache)
-        else:
-            h, _ = attn_apply(self["attn"], hn, self.cfg,
-                              positions=positions, causal=True,
-                              window=window, cache=cache)
-        x = x + h
-        return x + mlp_apply(self["mlp"], rms_norm(x, self["ln2"], eps),
-                             self.cfg)
+def attn_mlp_block(p, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor, window: int | None = None,
+                   cache=None) -> torch.Tensor:
+    """Attention then gated MLP over parameters ``p``, each residual
+    around an RMS norm: a dense layer, or zamba2's shared block.
+    ``cache`` = (k, v, length), the layer's decode cache, written in
+    place: a ring for an all-sliding-window config, else a linear buffer
+    (:func:`~.layers.attn_apply`)."""
+    eps = cfg.norm_eps
+    hn = rms_norm(x, p["ln1"], eps)
+    if cache is not None and _rolling(cfg):
+        h, _ = attn_ring_step(p["attn"], hn, cfg, positions=positions,
+                              cache=cache)
+    else:
+        h, _ = attn_apply(p["attn"], hn, cfg, positions=positions,
+                          causal=True, window=window, cache=cache)
+    x = x + h
+    return x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"], eps), cfg)
 
 
 class LM(nn.Module):
@@ -171,14 +169,46 @@ class LM(nn.Module):
         self.final_norm = leaf(shapes["final_norm"])
         self.unembed = leaf(shapes["unembed"]) if "unembed" in shapes \
             else None
-        block = SSDBlock if cfg.family in ("ssm", "hybrid") else AttnMLPBlock
-        self.layers = nn.ModuleList(block(cfg, device)
+        self.layers = nn.ModuleList(ParamTree(shapes["layers"], device)
                                     for _ in range(cfg.n_layers))
-        self.shared = AttnMLPBlock(cfg, device) \
-            if cfg.family == "hybrid" else None
+        self.shared = ParamTree(shapes["shared"], device) \
+            if "shared" in shapes else None
+
+    def __getitem__(self, name: str):
+        """The reference tree's top level: ``embed``, ``final_norm``,
+        ``unembed`` (None when tied), ``layers`` (indexed by layer),
+        ``shared`` (None but for the hybrid)."""
+        return getattr(self, name)
 
     def forward(self, batch: dict) -> torch.Tensor:
         return prefill(self, batch)
+
+
+def param_tree(model: LM, params: dict[str, torch.Tensor] | None = None):
+    """The tree the forward reads its parameters from: ``model`` itself,
+    or, given ``params`` — a tensor for every name of
+    ``model.named_parameters()`` and no other — those tensors nested the
+    same way (``tree["layers"][i]["ssm"]["in_z"]`` is
+    ``params["layers.<i>.ssm.in_z"]``), with ``unembed`` and ``shared``
+    None where the model has none.  The train step runs the model on its
+    compute tensors this way."""
+    if params is None:
+        return model
+    names = [n for n, _ in model.named_parameters()]
+    if set(params) != set(names):
+        raise KeyError(f"params must name exactly the model's parameters; "
+                       f"missing {sorted(set(names) - set(params))}, "
+                       f"extra {sorted(set(params) - set(names))}")
+    tree: dict = {}
+    for dotted in names:
+        *path, leaf = dotted.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = params[dotted]
+    tree["layers"] = [tree["layers"][str(i)]
+                      for i in range(model.cfg.n_layers)]
+    return {"unembed": None, "shared": None, **tree}
 
 
 # ---------------------------------------------------------------------------
@@ -265,57 +295,125 @@ def _rolling(cfg: ModelConfig) -> bool:
     return cfg.swa_pattern == "all" and cfg.sliding_window is not None
 
 
+#: the matrix products that ``remat="dots"`` saves: those without batch
+#: dimensions (the projections), as the reference's
+#: ``checkpoint_dots_with_no_batch_dims`` policy
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``fn(x)`` rematerialised as ``cfg.remat`` says, the reference's
+    ``_maybe_remat``: ``"none"`` saves every activation; ``"full"`` (every
+    config's default) saves only ``x`` and recomputes the layer in the
+    backward pass; any other value saves the projections' products too
+    (selective checkpointing).  Only a forward that builds a graph is
+    wrapped; remat changes no value."""
+    if cfg.remat == "none" or not (torch.is_grad_enabled()
+                                   and x.requires_grad):
+        return fn(x)
+    extra = {} if cfg.remat == "full" else {
+        "context_fn": lambda: create_selective_checkpoint_contexts(
+            _save_dots)}
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
+                      **extra)
+
+
 def forward_hidden(model: LM, x: torch.Tensor, positions: torch.Tensor,
-                   cache: dict | None = None) -> torch.Tensor:
-    """Embed-less trunk: x (B, T, D) → hidden (B, T, D).  Each block's
-    forward is the reference's ``_block_apply``; the hybrid's shared
-    block (its ``_shared_attn_apply``) runs before every
-    ``shared_attn_every``-th layer, with full attention.  With a decode
-    ``cache`` (:func:`init_cache`) each layer reads and writes its own
-    slice of it; the shared block's ``a``-th application, before layer
+                   cache: dict | None = None, tree=None) -> torch.Tensor:
+    """Embed-less trunk: x (B, T, D) → hidden (B, T, D), on the
+    parameters of ``tree`` (:func:`param_tree`; the model's own if None).
+    Each block's forward is the reference's ``_block_apply``; the
+    hybrid's shared block (its ``_shared_attn_apply``) runs before every
+    ``shared_attn_every``-th layer, with full attention, inside that
+    layer's remat (:func:`_remat`).  With a decode ``cache``
+    (:func:`init_cache`) each layer reads and writes its own slice of it;
+    the shared block's ``a``-th application, before layer
     ``a * shared_attn_every``, uses attention cache ``a``."""
     cfg = model.cfg
+    P = model if tree is None else tree
     windows = window_schedule(cfg)
     every = max(cfg.shared_attn_every, 1)
-    for i, block in enumerate(model.layers):
-        if model.shared is not None and i % every == 0:
-            attn_cache = None if cache is None else (
-                cache["k"][i // every], cache["v"][i // every], cache["len"])
-            x = model.shared(x, positions, cache=attn_cache)
+    block = ssd_block if cfg.family in ("ssm", "hybrid") else attn_mlp_block
+    for i in range(cfg.n_layers):
+        shared = P["shared"] is not None and i % every == 0
         if cache is None:
-            layer_cache = None
-        elif "ssd" in cache:
-            layer_cache = (cache["ssd"][i], cache["conv"][i])
+            attn_cache = layer_cache = None
         else:
-            layer_cache = (cache["k"][i], cache["v"][i], cache["len"])
-        x = block(x, positions, None if windows is None else windows[i],
-                  cache=layer_cache)
+            attn_cache = (cache["k"][i // every], cache["v"][i // every],
+                          cache["len"]) if shared else None
+            layer_cache = (cache["ssd"][i], cache["conv"][i]) \
+                if "ssd" in cache else \
+                (cache["k"][i], cache["v"][i], cache["len"])
+
+        def layer(h, i=i, shared=shared, attn_cache=attn_cache,
+                  layer_cache=layer_cache):
+            if shared:
+                h = attn_mlp_block(P["shared"], h, cfg, positions,
+                                   cache=attn_cache)
+            return block(P["layers"][i], h, cfg, positions,
+                         None if windows is None else windows[i],
+                         cache=layer_cache)
+
+        x = layer(x) if cache is not None else _remat(layer, x, cfg)
     return x
 
 
-def embed_tokens(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of the embedding table in ``cfg.dtype`` (gathered, then cast:
-    the same values as casting the table first)."""
-    return model.embed[tokens].to(getattr(torch, model.cfg.dtype))
+def embed_tokens(P, tokens: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """Rows of ``P["embed"]`` in ``cfg.dtype`` (gathered, then cast: the
+    same values as casting the table first)."""
+    return P["embed"][tokens].to(getattr(torch, cfg.dtype))
 
 
-def _last_logits(model: LM, hidden: torch.Tensor) -> torch.Tensor:
+def _unembedding(P) -> torch.Tensor:
+    return P["embed"] if P["unembed"] is None else P["unembed"]
+
+
+def _last_logits(P, hidden: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
     """The last position's final norm and unembedding → (B, V) float32,
     soft-capped."""
-    cfg = model.cfg
-    last = rms_norm(hidden[:, -1], model.final_norm, cfg.norm_eps)
-    w_un = model.embed if model.unembed is None else model.unembed
-    logits = last @ w_un.to(last.dtype).T
+    last = rms_norm(hidden[:, -1], P["final_norm"], cfg.norm_eps)
+    logits = last @ _unembedding(P).to(last.dtype).T
     return softcap(logits.float(), cfg.final_softcap)
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, device=tokens.device)[None].expand(B, S)
 
 
 def prefill(model: LM, batch: dict) -> torch.Tensor:
     """Prefill forward: tokens (B, S) → last-token logits (B, V) float32."""
     tokens = batch["tokens"]
-    x = embed_tokens(model, tokens)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    return _last_logits(model, forward_hidden(model, x, positions))
+    x = embed_tokens(model, tokens, model.cfg)
+    return _last_logits(model, forward_hidden(model, x, _positions(tokens)),
+                        model.cfg)
+
+
+def loss_fn(model: LM, batch: dict,
+            params: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+    """Training loss, the reference's ``loss_fn`` for the ported families:
+    ``batch`` holds ``tokens`` and ``labels`` (B, S) (label -1: not
+    counted); embedding, the trunk (rematerialised per ``cfg.remat``),
+    the final norm and :func:`~.layers.chunked_softmax_xent` over the
+    unembedding (the embedding when tied) → the mean NLL, a float32
+    scalar.  ``params`` (:func:`param_tree`) runs the model on those
+    tensors in place of its own parameters."""
+    cfg = model.cfg
+    check_ported(cfg)
+    P = param_tree(model, params)
+    tokens = batch["tokens"]
+    x = embed_tokens(P, tokens, cfg)
+    hidden = forward_hidden(model, x, _positions(tokens), tree=P)
+    hidden = rms_norm(hidden, P["final_norm"], cfg.norm_eps)
+    return chunked_softmax_xent(hidden, _unembedding(P), batch["labels"],
+                                cfg, final_softcap=cfg.final_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -375,9 +473,10 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor
     one; the same dict is handed back.  Past ``max_len`` a linear cache
     keeps writing its last slot, as the reference's clamped update does
     (:func:`~.layers.attn_apply`)."""
-    x = embed_tokens(model, tokens)
+    x = embed_tokens(model, tokens, model.cfg)
     positions = torch.full((tokens.shape[0], 1), cache["len"],
                            device=x.device)
-    logits = _last_logits(model, forward_hidden(model, x, positions, cache))
+    logits = _last_logits(model, forward_hidden(model, x, positions, cache),
+                          model.cfg)
     cache["len"] += 1
     return logits, cache

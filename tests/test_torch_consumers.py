@@ -267,11 +267,11 @@ def test_paged_kv_matches_reference():
 
 
 def test_packages_export_the_reference_names():
+    import repro.checkpoint
     import repro.data
     assert port_ft.__all__ == ref_ft.__all__
     assert port_data.__all__ == repro.data.__all__
-    assert port_ckpt.__all__ == ["CheckpointPlacement", "StorageHost",
-                                 "plan_placement"]
+    assert port_ckpt.__all__ == repro.checkpoint.__all__
     for cls in (port_ckpt.StorageHost, port_data.DataShard,
                 port_kv.PagedKVSpec, port_experts.ExpertClusterSpec):
         assert dataclasses.is_dataclass(cls)

@@ -1,7 +1,10 @@
 """The port's CUDA kernels K1's fused selection (``select_rows``), K2
 (flash attention) and K3 (the SSD scan) against their plain versions,
 and the LM prefill through them against the same parameters on the CPU;
-the decode step and the serving engine on the card against the CPU.  Every test needs a card (``cuda``
+the decode step and the serving engine on the card against the CPU;
+K2's log-sum-exp in both variants, the training backward through K2 and
+K3 against the all-plain one on the card, and a train step on the card
+against the CPU.  Every test needs a card (``cuda``
 marker) and skips without one; the file imports no JAX, so it runs
 where the card is:
 
@@ -1067,3 +1070,130 @@ def test_sharded_engine_nccl_group_of_one_matches_serial(card, cluster):
     assert got.stats["host_syncs"] == steps // 8     # one sync a chunk
     assert launches == {"select_rows": 0, "masked_select": 0,
                         "select_rows_window": steps}
+
+
+# ---------------------------------------------------------------------------
+# training: K2's log-sum-exp, the backward passes, a train step
+
+
+@pytest.mark.parametrize("T,H,KV,Dh,window,cap,dtype", [
+    (256, 4, 2, 128, None, None, torch.bfloat16),      # qwen3's heads
+    (200, 4, 4, 112, 48, 30.0, torch.bfloat16),        # zamba2's, capped
+    (256, 4, 2, 160, 70, None, torch.bfloat16),        # SIMT (Dh 160)
+    (200, 4, 2, 64, None, 20.0, torch.float32),        # SIMT
+])
+def test_k2_lse_matches_plain(card, T, H, KV, Dh, window, cap, dtype):
+    """K2 with ``with_lse``: the output as without it, and the rows'
+    natural log-sum-exp (B, H, Tq) against the plain online version's on
+    float32 copies of the same inputs, within 1e-4 in float32 and 2e-3
+    in bf16 (values near log T; the tensor-core variant keeps its logits
+    in log2 units, and a slip there would be off by about m (1 - ln 2))."""
+    from repro_torch.kernels.ref import flash_attention_online
+    g = torch.Generator(device=card).manual_seed(4)
+    q, k, v = (torch.randn((2, T, h, Dh), generator=g, device=card).to(dtype)
+               for h in (H, KV, KV))
+    kw = dict(causal=True, window=window, cap=cap)
+    variant = k2.route(dtype, Dh)
+    k2.reset_launch_count()
+    out, lse = k2.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    assert k2.launch_counts()[variant] == 1
+    assert lse.shape == (2, H, T) and lse.dtype == torch.float32
+    torch.testing.assert_close(out, k2.flash_attention_fwd(q, k, v, **kw),
+                               rtol=0, atol=0)
+    _, want = flash_attention_online(q.float(), k.float(), v.float(),
+                                     with_lse=True, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-3
+    torch.testing.assert_close(lse, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_grads_on_card_match_all_plain(card, dtype):
+    """``ops.flash_attention`` on inputs that require a gradient (K2's
+    forward with its lse, the plain backward) against the all-plain path
+    on the card (the online forward's float32 ``out`` and lse, the same
+    backward), at qwen3's heads (H 4 over KV 2, Dh 128) with a window.
+    float32 within 1e-4; bf16 within 2e-2 of each gradient's largest
+    entry: the gradients are bf16, and K2's ``out`` is bf16 where the
+    plain forward's is float32, which ``delta = Σ dout·out`` carries."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (flash_attention_bwd_plain,
+                                         flash_attention_online)
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn((2, 256, h, 128), generator=g, device=card)
+               .to(dtype).requires_grad_() for h in (4, 2, 2))
+    dout = torch.randn((2, 256, 4, 128), generator=g, device=card).to(dtype)
+    kw = dict(causal=True, window=100, cap=None, scale=None)
+    k2.reset_launch_count()
+    out = ops.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert k2.launch_count() == 1
+    out32, lse = flash_attention_online(q.detach(), k.detach(), v.detach(),
+                                        with_lse=True, **kw)
+    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                     out32, lse, dout, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        tol = 1e-4 if dtype == torch.float32 \
+            else 2e-2 * float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def test_ssd_scan_grads_on_card_match_all_plain(card):
+    """``ops.ssd_scan`` on bf16 inputs that require a gradient at
+    mamba2's widths (P 64, N 128, chunk 64: the tensor-core K3) on the
+    model's ramps: the forward within the bf16 row bound of the float32
+    plain version, and the gradients equal to the all-plain ones (the
+    backward recomputes the plain chunk loop from the saved inputs)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_chunked
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 1, 256, 4, 1, 64, 128,
+                                   torch.bfloat16, seed=6, ramp=True)
+    ins = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    dy = torch.randn_like(x)
+    k3.reset_launch_count()
+    y = ops.ssd_scan(*ins, chunk=64)
+    got = torch.autograd.grad(y, ins, dy)
+    assert k3.launch_counts() == {"tensor_core": 1, "simt": 0}
+    plain = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    y_plain = ssd_chunked(*plain, 64)[0]
+    want = torch.autograd.grad(y_plain, plain, dy)
+    torch.testing.assert_close(y.float(), y_plain.float(),
+                               **_tol(torch.bfloat16))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """Reduced qwen3 and mamba2 in float32, one ``make_train_step`` step
+    on the card (K2 SIMT, K3 SIMT forwards) and on the CPU from one set
+    of parameters: the loss, the grad norm and every parameter after the
+    update within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, build_model
+    from repro_torch.train import init_train_state, make_train_step
+    for arch, want_launches in (("qwen3-0.6b", (2, 0)),
+                                ("mamba2-2.7b", (0, 2))):
+        cfg = get_config(arch).reduced(dtype="float32")
+        on_card = build_model(cfg, seed=0)
+        on_cpu = LM(cfg, torch.device("cpu"))
+        on_cpu.load_state_dict({k: v.cpu() for k, v in
+                                on_card.state_dict().items()})
+        tok = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 64)))
+        batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+        step = make_train_step(cfg)
+        k2.reset_launch_count()
+        k3.reset_launch_count()
+        card_state, got = step(init_train_state(cfg, model=on_card),
+                               {k: v.to(card) for k, v in batch.items()})
+        # the forward and the full-remat recompute, per layer
+        assert (k2.launch_count(), k3.launch_count()) == tuple(
+            2 * n for n in want_launches)
+        cpu_state, want = step(init_train_state(cfg, model=on_cpu), batch)
+        for key in ("loss", "grad_norm", "lr"):
+            torch.testing.assert_close(got[key].cpu(), want[key],
+                                       rtol=1e-4, atol=1e-4)
+        for (name, a), b in zip(card_state["params"].named_parameters(),
+                                cpu_state["params"].parameters()):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4,
+                                       msg=name)

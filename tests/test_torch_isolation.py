@@ -2,8 +2,8 @@
 loads neither JAX nor the reference package ``repro``; no module of the
 port, nor ``chip_smoke.py`` or the planner carries it shares with the
 tests, imports either; and the default device of the batch engine, of
-the LM and of the serving path is the card — each raises without one
-rather than carrying on on the CPU."""
+the LM, of the serving path and of training is the card — each raises
+without one rather than carrying on on the CPU."""
 
 import ast
 import os
@@ -51,7 +51,10 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
             "repro_torch.fleet.pack", "repro_torch.fleet.planner",
             "repro_torch.fleet.service", "repro_torch.fleet.loadgen",
             "repro_torch.serve.engine", "repro_torch.launch.serve",
-            "repro_torch.configs.qwen3_0_6b"} <= walked
+            "repro_torch.configs.qwen3_0_6b", "repro_torch.train.optimizer",
+            "repro_torch.train.train_step", "repro_torch.train.compression",
+            "repro_torch.checkpoint.checkpoint",
+            "repro_torch.launch.train"} <= walked
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -123,6 +126,27 @@ def test_serving_default_device_is_cuda():
         init_cache(cfg, 2, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(cfg, {})
+
+
+def test_training_default_device_is_cuda(tmp_path):
+    """``init_train_state`` with no device, and the training launcher
+    without ``--device``, go to the card; without one they raise."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import init_train_state
+    cfg = get_config("qwen3-0.6b").reduced(n_layers=1, vocab_size=64)
+    argv = ["--steps", "1", "--batch", "2", "--seq", "16", "--save-every",
+            "5", "--checkpoint-dir", str(tmp_path)]
+    if torch.cuda.is_available():
+        state = init_train_state(cfg)
+        assert state["params"].embed.device.type == "cuda" \
+            and state["opt"]["mu"]["embed"].device.type == "cuda"
+        launch_train.main(argv)
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(argv)
 
 
 @pytest.mark.cuda
